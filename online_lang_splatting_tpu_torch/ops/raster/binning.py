@@ -1,0 +1,82 @@
+"""Tile binning (port of ops/raster/binning.py:bin_gaussians_sorted).
+
+Gaussian → tile instance duplication in (tile, depth, Gaussian id) order:
+
+1. a stable depth pre-sort of the Gaussians (ties by id);
+2. expansion of each Gaussian over its emission rect, in that order;
+3. the exact per-(Gaussian, tile) alpha cull (`tile_keeps_instance`);
+   culled instances are dropped;
+4. a stable sort by tile, giving `starts` / `tile_counts` per tile.
+
+The instance arrays are sized from the exact count of each render, so the
+JAX package's fixed buckets, overflow flag and grow-and-replay are not
+needed: `overflow` is always False. Sizing costs one host sync per render.
+`num_instances` is the pre-cull demand, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .preprocess import Preprocessed, tile_keeps_instance
+
+
+class SortedBinning(NamedTuple):
+    s_gid: torch.Tensor        # (S,) int32 Gaussian id per sorted instance
+    s_tile: torch.Tensor       # (S,) int32 tile id per sorted instance
+    starts: torch.Tensor       # (T,) int32 first sorted index of each tile
+    tile_counts: torch.Tensor  # (T,) int32 instances per tile
+    num_instances: int         # pre-cull (Gaussian, tile) demand
+
+
+def bin_gaussians_sorted(prep: Preprocessed, *, tiles_x: int, tiles_y: int,
+                         tile_px: int) -> SortedBinning:
+    device = prep.depth.device
+    num_tiles = tiles_x * tiles_y
+    p = prep.depth.shape[0]
+    tt = prep.tiles_touched.to(torch.int64)
+    depth = prep.depth.detach()
+    d_key = torch.where(tt > 0, depth, torch.full_like(depth, float("inf")))
+    _, perm = torch.sort(d_key, stable=True)
+    tt_s = tt[perm]
+    total = int(tt_s.sum().item())  # the one host sync of a render
+    if total == 0:
+        zi = torch.zeros(0, dtype=torch.int32, device=device)
+        zt = torch.zeros(num_tiles, dtype=torch.int32, device=device)
+        return SortedBinning(zi, zi, zt, zt, 0)
+
+    # Expansion in depth order: instance i belongs to depth-sorted
+    # Gaussian g(i) at local index i - offset[g].
+    offsets = torch.cumsum(tt_s, 0) - tt_s
+    g_sorted = torch.repeat_interleave(
+        torch.arange(p, device=device), tt_s, output_size=total
+    )
+    gid = perm[g_sorted]
+    local = torch.arange(total, device=device) - offsets[g_sorted]
+    rmin = prep.rect_min[gid].to(torch.int64)
+    width = torch.clamp(prep.rect_max[gid, 0].to(torch.int64) - rmin[:, 0], min=1)
+    ly = local // width
+    lx = local - ly * width
+    tx = rmin[:, 0] + lx
+    ty = rmin[:, 1] + ly
+
+    xy = prep.xy.detach()[gid]
+    conic = prep.conic.detach()[gid]
+    keep = tile_keeps_instance(
+        xy[:, 0], xy[:, 1], conic[:, 0], conic[:, 1], conic[:, 2],
+        prep.opacity.detach()[gid],
+        (tx * tile_px).to(torch.float32), (ty * tile_px).to(torch.float32),
+        tile_px,
+    )
+    tile_id = (ty * tiles_x + tx)[keep]
+    gid = gid[keep]
+    s_tile, order = torch.sort(tile_id, stable=True)
+    s_gid = gid[order].to(torch.int32)
+    s_tile = s_tile.to(torch.int32)
+
+    tile_ids = torch.arange(num_tiles, device=device, dtype=torch.int32)
+    starts = torch.searchsorted(s_tile, tile_ids, side="left").to(torch.int32)
+    ends = torch.searchsorted(s_tile, tile_ids, side="right").to(torch.int32)
+    return SortedBinning(s_gid, s_tile, starts, ends - starts, total)

@@ -1,0 +1,370 @@
+"""Tiled blend: the production rasterization path of the port.
+
+Replaces the two Pallas kernels of the JAX package,
+`ops/raster/tiled.py:_fwd_kernel` (front-to-back compositing) and
+`ops/raster/tiled.py:_bwd_kernel` (its gradient, plus the XLA scatter-add
+that reduced per-instance rows per Gaussian), with two CUDA kernels written
+for Hopper (`csrc/blend_fwd.cu`, `csrc/blend_bwd.cu`; their source notes
+say what bounds them and how they are laid out).
+
+Beside each kernel sits its plain PyTorch version with the same inputs and
+outputs (`blend_forward_plain`, `blend_backward_plain`): a loop over tiles,
+vectorised over (instances × pixels) with `cumprod`, walking each
+tile's range in chunks and stopping once every pixel has terminated. The wrappers
+`blend_forward` / `blend_backward` take the plain version only for CPU
+tensors; for CUDA tensors they launch the kernel or raise.
+
+Inputs of both directions, per Gaussian:
+  geom (P, 8) float: x, y, conic a, b, c, opacity, 0, 0
+  feat (P, C) float: color (3), language (F), depth (1); C = F + 4
+and per render: the sorted instances `s_gid` with per-tile `starts` /
+`tile_counts` (ops/raster/binning.py).
+Forward outputs: feat_img (C, H, W) accumulated channels, final_t (H, W),
+n_contrib (H, W) int32 (1-based last contributing position in the tile's
+instance range, 0 = none) and n_touched (P,) int32. `stats=False` leaves
+the last two zero. The backward takes the cotangents of feat_img and
+final_t and returns per-Gaussian d_geom (P, 6) and d_feat (P, C).
+
+Images are assembled outside the autograd Function, as in the reference:
+color = acc + T·bg, language without bg, opacity = 1 - T, so the gradients
+of bg and opacity reach the kernels through final_t.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import config as C
+from .binning import bin_gaussians_sorted
+from .oracle import BlendOutput
+from .preprocess import Preprocessed
+
+GEOM_COLS = 8
+SUPPORTED_CHANNELS = (4, 7, 19)  # F_lang 0 (tracking), 3, 15 (mapping)
+
+
+@dataclass
+class KernelStats:
+    """Launch counters of one kernel and of its plain version."""
+
+    launches: int = 0
+    plain_calls: int = 0
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain_calls = 0
+
+
+FWD_STATS = KernelStats()
+BWD_STATS = KernelStats()
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path; the card-side reference of chip_smoke.py)
+
+
+def _tile_pixels(t: int, tiles_x: int, tile: int, width: int, height: int,
+                 device):
+    lane = torch.arange(tile * tile, device=device)
+    px = (t % tiles_x) * tile + lane % tile
+    py = (t // tiles_x) * tile + lane // tile
+    ok = (px < width) & (py < height)
+    return px[ok], py[ok]
+
+
+PLAIN_CHUNK = 256  # instances per step of the plain versions' tile walk
+
+
+def _chunk_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                 t_prev: torch.Tensor, done: torch.Tensor):
+    """(n, pix) alpha chain of one chunk of a tile's instances, entered
+    with per-pixel transmittance `t_prev` and stop flags `done`."""
+    x, y = g[:, 0:1], g[:, 1:2]
+    ca, cb, cc, op = g[:, 2:3], g[:, 3:4], g[:, 4:5], g[:, 5:6]
+    dx = x - px.to(g.dtype)[None, :]
+    dy = y - py.to(g.dtype)[None, :]
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    expp = torch.exp(power)
+    alpha_raw = op * expp
+    alpha = torch.clamp(alpha_raw, max=C.ALPHA_MAX)
+    skip = (power > 0.0) | (alpha < C.ALPHA_MIN)
+    alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
+    one_minus = 1.0 - alpha
+    ones = torch.ones_like(one_minus[:1])
+    cum_t = t_prev[None, :] * torch.cat([ones, torch.cumprod(one_minus, 0)[:-1]], 0)
+    test_t = cum_t * one_minus
+    # cum_t is non-increasing down the instance axis (skipped rows multiply
+    # by exactly 1), so "a stop fired at or before row i" is test_t < eps.
+    stopped = test_t < C.T_EPS
+    contrib = ~skip & ~stopped & ~done[None, :]
+    w = torch.where(contrib, alpha * cum_t, torch.zeros_like(alpha))
+    t_next = t_prev * torch.prod(torch.where(contrib, one_minus, ones), 0)
+    done_next = done | (~skip & stopped).any(0)
+    return dict(dx=dx, dy=dy, expp=expp, alpha_raw=alpha_raw,
+                one_minus=one_minus, cum_t=cum_t, test_t=test_t,
+                contrib=contrib, w=w, t_next=t_next, done_next=done_next)
+
+
+def _tile_walk(s_gid, starts_h, counts_h, tiles_x, tile, width, height,
+               device):
+    """Yield (pixel x, pixel y, [(chunk offset, chunk ids), ...]) for each
+    non-empty tile: its in-image pixels and its sorted instance range cut
+    into PLAIN_CHUNK-sized chunks."""
+    for t, n in enumerate(counts_h):
+        if n == 0:
+            continue
+        px, py = _tile_pixels(t, tiles_x, tile, width, height, device)
+        ids = s_gid[starts_h[t]:starts_h[t] + n].long()
+        yield px, py, [(c0, ids[c0:c0 + PLAIN_CHUNK])
+                       for c0 in range(0, n, PLAIN_CHUNK)]
+
+
+def blend_forward_plain(geom, feat, s_gid, starts, tile_counts, *, width: int,
+                        height: int, tile: int, stats: bool = True):
+    FWD_STATS.plain_calls += 1
+    device, dtype = feat.device, feat.dtype
+    p, c = feat.shape
+    tiles_x = (width + tile - 1) // tile
+    feat_img = torch.zeros((c, height, width), dtype=dtype, device=device)
+    final_t = torch.ones((height, width), dtype=dtype, device=device)
+    n_contrib = torch.zeros((height, width), dtype=torch.int32, device=device)
+    n_touched = torch.zeros(p, dtype=torch.int32, device=device)
+    for px, py, chunks in _tile_walk(s_gid, starts.tolist(), tile_counts.tolist(),
+                                     tiles_x, tile, width, height, device):
+        t_prev = torch.ones(px.shape[0], dtype=dtype, device=device)
+        done = torch.zeros(px.shape[0], dtype=torch.bool, device=device)
+        acc = torch.zeros((px.shape[0], c), dtype=dtype, device=device)
+        last = torch.zeros(px.shape[0], dtype=torch.int32, device=device)
+        for c0, ids in chunks:
+            a = _chunk_alpha(geom[ids], px, py, t_prev, done)
+            contrib = a["contrib"]
+            acc = acc + a["w"].T @ feat[ids]
+            if stats:
+                pos = torch.arange(c0 + 1, c0 + 1 + ids.shape[0], device=device,
+                                   dtype=torch.int32)[:, None]
+                last = torch.maximum(last, torch.amax(
+                    torch.where(contrib, pos, torch.zeros_like(pos)), 0))
+                touched = (contrib & (a["test_t"] > C.N_TOUCHED_T)).sum(1)
+                n_touched.index_add_(0, ids, touched.to(torch.int32))
+            t_prev, done = a["t_next"], a["done_next"]
+            if bool(done.all()):
+                break  # every pixel terminated: later instances are inert
+        feat_img[:, py, px] = acc.T
+        final_t[py, px] = t_prev
+        n_contrib[py, px] = last
+    return feat_img, final_t, n_contrib, n_touched
+
+
+def blend_backward_plain(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
+                         feat_img, final_t, *, width: int, height: int,
+                         tile: int):
+    """Gradient of the blend walking forward: the suffix sums are the saved
+    per-pixel total Σ_f g_f·A_f + g_T·T_final minus the running inclusive
+    prefix of w·G (no division by T)."""
+    BWD_STATS.plain_calls += 1
+    device, dtype = feat.device, feat.dtype
+    p, c = feat.shape
+    tiles_x = (width + tile - 1) // tile
+    d_geom = torch.zeros((p, 6), dtype=dtype, device=device)
+    d_feat = torch.zeros((p, c), dtype=dtype, device=device)
+    for px, py, chunks in _tile_walk(s_gid, starts.tolist(), tile_counts.tolist(),
+                                     tiles_x, tile, width, height, device):
+        g_pix = g_feat[:, py, px]                       # (C, pix)
+        carry = (g_pix * feat_img[:, py, px]).sum(0) + g_t[py, px] * final_t[py, px]
+        t_prev = torch.ones(px.shape[0], dtype=dtype, device=device)
+        done = torch.zeros(px.shape[0], dtype=torch.bool, device=device)
+        for _c0, ids in chunks:
+            g = geom[ids]
+            a = _chunk_alpha(g, px, py, t_prev, done)
+            gdot = feat[ids] @ g_pix                    # (n, pix)
+            w = a["w"]
+            prefix = torch.cumsum(w * gdot, 0)
+            suffix = carry[None, :] - prefix
+            carry = carry - prefix[-1]
+            dalpha = torch.where(
+                a["contrib"], a["cum_t"] * gdot - suffix / a["one_minus"],
+                torch.zeros_like(w))
+            de = torch.where(a["alpha_raw"] < C.ALPHA_MAX, dalpha * a["expp"],
+                             torch.zeros_like(w))
+            dpower = de * g[:, 5:6]
+            dx, dy = a["dx"], a["dy"]
+            ca, cb, cc = g[:, 2:3], g[:, 3:4], g[:, 4:5]
+            ddx = dpower * dx
+            ddy = dpower * dy
+            rows = torch.stack([
+                -(ddx * ca + ddy * cb).sum(1),
+                -(ddy * cc + ddx * cb).sum(1),
+                -0.5 * (ddx * dx).sum(1),
+                -(ddx * dy).sum(1),
+                -0.5 * (ddy * dy).sum(1),
+                de.sum(1),
+            ], 1)
+            d_geom.index_add_(0, ids, rows)
+            d_feat.index_add_(0, ids, w @ g_pix.T)
+            t_prev, done = a["t_next"], a["done_next"]
+            if bool(done.all()):
+                break
+    return d_geom, d_feat
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version for CPU tensors, the kernel for CUDA tensors
+
+
+def _check_cuda_inputs(tensors: dict, channels: int):
+    if channels not in SUPPORTED_CHANNELS:
+        raise ValueError(
+            f"blend kernel supports {SUPPORTED_CHANNELS} feature channels, "
+            f"got {channels}")
+    device = None
+    for name, (t, dtype) in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def blend_forward(geom, feat, s_gid, starts, tile_counts, *, width: int,
+                  height: int, tile: int, stats: bool = True):
+    if not feat.is_cuda:
+        return blend_forward_plain(geom, feat, s_gid, starts, tile_counts,
+                                   width=width, height=height, tile=tile,
+                                   stats=stats)
+    from . import kernels
+
+    p, c = feat.shape
+    _check_cuda_inputs(dict(
+        geom=(geom, torch.float32), feat=(feat, torch.float32),
+        s_gid=(s_gid, torch.int32), starts=(starts, torch.int32),
+        tile_counts=(tile_counts, torch.int32)), c)
+    if geom.shape != (p, GEOM_COLS):
+        raise ValueError(f"geom must be ({p}, {GEOM_COLS}), got {tuple(geom.shape)}")
+    dev = feat.device
+    feat_img = torch.empty((c, height, width), dtype=torch.float32, device=dev)
+    final_t = torch.empty((height, width), dtype=torch.float32, device=dev)
+    n_contrib = torch.empty((height, width), dtype=torch.int32, device=dev)
+    n_touched = torch.zeros(p, dtype=torch.int32, device=dev)
+    kernels.launch_forward(
+        geom, feat, s_gid, starts, tile_counts, feat_img, final_t, n_contrib,
+        n_touched, channels=c, width=width, height=height, tile=tile,
+        stats=stats)
+    FWD_STATS.launches += 1
+    return feat_img, final_t, n_contrib, n_touched
+
+
+def blend_backward(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
+                   feat_img, final_t, *, width: int, height: int, tile: int):
+    if not feat.is_cuda:
+        return blend_backward_plain(geom, feat, s_gid, starts, tile_counts,
+                                    g_feat, g_t, feat_img, final_t,
+                                    width=width, height=height, tile=tile)
+    from . import kernels
+
+    p, c = feat.shape
+    f32 = torch.float32
+    _check_cuda_inputs(dict(
+        geom=(geom, f32), feat=(feat, f32), s_gid=(s_gid, torch.int32),
+        starts=(starts, torch.int32), tile_counts=(tile_counts, torch.int32),
+        g_feat=(g_feat, f32), g_t=(g_t, f32), feat_img=(feat_img, f32),
+        final_t=(final_t, f32)), c)
+    d_table = torch.zeros((p, 6 + c), dtype=f32, device=feat.device)
+    kernels.launch_backward(
+        geom, feat, s_gid, starts, tile_counts, g_feat, g_t, feat_img,
+        final_t, d_table, channels=c, width=width, height=height, tile=tile)
+    BWD_STATS.launches += 1
+    return d_table[:, :6], d_table[:, 6:]
+
+
+# ---------------------------------------------------------------------------
+# Autograd
+
+
+def pack_inputs(xy, conic, opacity, color, lang, depth):
+    """Per-Gaussian kernel inputs: geom (P, 8) and feat (P, C)."""
+    pad = torch.zeros((xy.shape[0], GEOM_COLS - 6), dtype=xy.dtype,
+                      device=xy.device)
+    geom = torch.cat([xy, conic, opacity[:, None], pad], 1).contiguous()
+    feat = torch.cat([color, lang, depth[:, None]], 1).contiguous()
+    return geom, feat
+
+
+def blend_inputs(prep: Preprocessed, language_features, *, width: int,
+                 height: int, tile: int):
+    """(geom, feat, binning) of a render, detached: the exact inputs the
+    blend kernels see on the main path."""
+    tiles_x = (width + tile - 1) // tile
+    tiles_y = (height + tile - 1) // tile
+    binning = bin_gaussians_sorted(prep, tiles_x=tiles_x, tiles_y=tiles_y,
+                                   tile_px=tile)
+    lang = (language_features if language_features is not None
+            else prep.xy.new_zeros((prep.xy.shape[0], 0)))
+    depth = torch.where(prep.valid, prep.depth, torch.zeros_like(prep.depth))
+    geom, feat = pack_inputs(prep.xy, prep.conic, prep.opacity, prep.color,
+                             lang, depth)
+    return geom.detach(), feat.detach(), binning
+
+
+class _Blend(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xy, conic, opacity, color, lang, depth, s_gid, starts,
+                tile_counts, width, height, tile, stats):
+        geom, feat = pack_inputs(xy, conic, opacity, color, lang, depth)
+        feat_img, final_t, n_contrib, n_touched = blend_forward(
+            geom, feat, s_gid, starts, tile_counts, width=width,
+            height=height, tile=tile, stats=stats)
+        ctx.save_for_backward(geom, feat, s_gid, starts, tile_counts,
+                              feat_img, final_t)
+        ctx.meta = (width, height, tile, lang.shape[1])
+        ctx.mark_non_differentiable(n_contrib, n_touched)
+        return feat_img, final_t, n_contrib, n_touched
+
+    @staticmethod
+    def backward(ctx, g_feat, g_t, _g_nc, _g_nt):
+        geom, feat, s_gid, starts, tile_counts, feat_img, final_t = ctx.saved_tensors
+        width, height, tile, f_lang = ctx.meta
+        g_feat = torch.zeros_like(feat_img) if g_feat is None else g_feat.contiguous()
+        g_t = torch.zeros_like(final_t) if g_t is None else g_t.contiguous()
+        d_geom, d_feat = blend_backward(
+            geom, feat, s_gid, starts, tile_counts, g_feat, g_t, feat_img,
+            final_t, width=width, height=height, tile=tile)
+        return (d_geom[:, 0:2], d_geom[:, 2:5], d_geom[:, 5], d_feat[:, 0:3],
+                d_feat[:, 3:3 + f_lang], d_feat[:, 3 + f_lang],
+                None, None, None, None, None, None, None)
+
+
+def blend_tiled(prep: Preprocessed, language_features, bg, *, width: int,
+                height: int, tile: int = C.DEFAULT_TILE,
+                stats: bool = True) -> BlendOutput:
+    """Bin → blend kernels → image assembly. Same outputs as the oracle."""
+    p = prep.xy.shape[0]
+    tiles_x = (width + tile - 1) // tile
+    tiles_y = (height + tile - 1) // tile
+    binning = bin_gaussians_sorted(prep, tiles_x=tiles_x, tiles_y=tiles_y,
+                                   tile_px=tile)
+    lang = (language_features if language_features is not None
+            else prep.xy.new_zeros((p, 0)))
+    f_lang = lang.shape[1]
+    depth = torch.where(prep.valid, prep.depth, torch.zeros_like(prep.depth))
+    feat_img, final_t, n_contrib, n_touched = _Blend.apply(
+        prep.xy, prep.conic, prep.opacity, prep.color, lang, depth,
+        binning.s_gid, binning.starts, binning.tile_counts, width, height,
+        tile, stats)
+    return BlendOutput(
+        color=feat_img[0:3] + final_t[None] * bg[:, None, None],
+        language=feat_img[3:3 + f_lang],
+        depth=feat_img[3 + f_lang:4 + f_lang],
+        opacity=(1.0 - final_t)[None],
+        final_t=final_t,
+        n_contrib=n_contrib,
+        n_touched=n_touched,
+        num_instances=binning.num_instances,
+        overflow=False,
+    )
