@@ -2,7 +2,10 @@
 
 The input is the JAX package's state with every field already converted to
 numpy by the caller (the port never imports JAX), so both packages can
-start a tracking run or a mapping iteration from the same map.
+start a tracking run or a mapping iteration from the same map, and the
+port's language models load the flax parameter trees that
+tools/convert_weights.py writes (`language_from_numpy`, the inverse of
+that tool's layout changes).
 """
 
 from __future__ import annotations
@@ -40,6 +43,163 @@ def gaussians_from_numpy(tree: dict, device="cpu"):
             count=t(np.int32(tree.get("count", 0))),
         )
     return params, aux, opt
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a))
+
+
+def _dense(node) -> dict:
+    """flax Dense {kernel (in, out), bias} -> nn.Linear {weight, bias}."""
+    out = {"weight": _tensor(np.asarray(node["kernel"]).T)}
+    if "bias" in node:
+        out["bias"] = _tensor(node["bias"])
+    return out
+
+
+def _conv(node) -> dict:
+    """flax Conv kernel HWIO -> OIHW; a depthwise (7, 7, 1, C) kernel
+    becomes (C, 1, 7, 7). The same permutation takes a flax ConvTranspose
+    kernel (kh, kw, out, in) to torch's (in, out, kh, kw)."""
+    return {"weight": _tensor(np.transpose(node["kernel"], (3, 2, 0, 1))),
+            "bias": _tensor(node["bias"])}
+
+
+def _norm(node) -> dict:
+    return {"weight": _tensor(node["scale"]), "bias": _tensor(node["bias"])}
+
+
+def _batchnorm(params, stats) -> dict:
+    return {**_norm(params), "running_mean": _tensor(stats["mean"]),
+            "running_var": _tensor(stats["var"]),
+            "num_batches_tracked": torch.tensor(0)}
+
+
+def _put(sd: dict, prefix: str, entries: dict):
+    for k, v in entries.items():
+        sd[f"{prefix}.{k}"] = v
+
+
+def visual_from_numpy(p: dict) -> dict:
+    """ConvNeXtCLIPVisual params -> models/convnext_clip state_dict. The
+    scanned blocks (stacked on a leading depth axis under
+    `stage{i}/blocks/block`) become one module per block."""
+    sd: dict = {}
+    _put(sd, "trunk.stem.0", _conv(p["stem_conv"]))
+    _put(sd, "trunk.stem.1", _norm(p["stem_norm"]))
+    s = 0
+    while f"stage{s}" in p:
+        stage, pre = p[f"stage{s}"], f"trunk.stages.{s}"
+        if "ds_norm" in stage:
+            _put(sd, f"{pre}.downsample.0", _norm(stage["ds_norm"]))
+            _put(sd, f"{pre}.downsample.1", _conv(stage["ds_conv"]))
+        blocks = stage["blocks"]["block"]
+        for b in range(np.asarray(blocks["gamma"]).shape[0]):
+            def pick(node):
+                return {k: np.asarray(v)[b] for k, v in node.items()}
+
+            bp = f"{pre}.blocks.{b}"
+            _put(sd, f"{bp}.conv_dw", _conv(pick(blocks["dwconv"])))
+            _put(sd, f"{bp}.norm", _norm(pick(blocks["norm"])))
+            _put(sd, f"{bp}.mlp.fc1", _dense(pick(blocks["mlp_fc1"])))
+            _put(sd, f"{bp}.mlp.fc2", _dense(pick(blocks["mlp_fc2"])))
+            sd[f"{bp}.gamma"] = _tensor(np.asarray(blocks["gamma"])[b])
+        s += 1
+    _put(sd, "trunk.head.norm", _norm(p["head_norm"]))
+    _put(sd, "head.mlp.fc1", _dense(p["head_fc1"]))
+    _put(sd, "head.mlp.fc2", _dense(p["head_fc2"]))
+    return sd
+
+
+def hr_from_numpy(tree: dict) -> dict:
+    """HighResLanguageFeatureNet {params, batch_stats} -> models/hr_net
+    state_dict."""
+    p, st = tree["params"], tree["batch_stats"]
+    sd: dict = {}
+
+    def conv_bn(prefix, pp, ss):
+        _put(sd, f"{prefix}.0", _conv(pp["conv"]))
+        _put(sd, f"{prefix}.1", _batchnorm(pp["bn"], ss["bn"]))
+
+    conv_bn("initial_conv", p["initial"], st["initial"])
+    for i in (1, 2, 3):
+        conv_bn(f"upsample{i}", p[f"up{i}"], st[f"up{i}"])
+    for i in (1, 2):
+        fp, fs, pre = p[f"fuse{i}"], st[f"fuse{i}"], f"attention_fusion{i}"
+        if "align" in fp:
+            _put(sd, f"{pre}.low_res_align", _conv(fp["align"]))
+        conv_bn(f"{pre}.fusion", fp["fusion"], fs["fusion"])
+        conv_bn(f"{pre}.attention", fp["attn_conv"], fs["attn_conv"])
+        _put(sd, f"{pre}.attention.3", _conv(fp["attn_proj"]))
+    _put(sd, "final_conv", _conv(p["final"]))
+    return sd
+
+
+def ae_from_numpy(tree: dict) -> dict:
+    """AutoencoderMLP {params, batch_stats} -> models/autoencoder
+    state_dict: encoder fc_i -> encoder.{3i}, bn_i -> encoder.{3i-2};
+    decoder fc_i -> decoder.{2i}."""
+    p, st = tree["params"], tree["batch_stats"]
+    sd: dict = {}
+    for name, node in p["encoder"].items():
+        i = int(name[2:])
+        if name.startswith("fc"):
+            _put(sd, f"encoder.{3 * i}", _dense(node))
+        else:
+            _put(sd, f"encoder.{3 * i - 2}", _batchnorm(node, st["encoder"][name]))
+    for name, node in p["decoder"].items():
+        _put(sd, f"decoder.{2 * int(name[2:])}", _dense(node))
+    return sd
+
+
+def online_ae_from_numpy(p: dict) -> dict:
+    """EncoderDecoderOnline params -> models/autoencoder state_dict."""
+    sd: dict = {}
+    for name, key in (("enc1", "encoder.0"), ("enc2", "encoder.2"),
+                      ("dec1", "decoder.0"), ("dec2", "decoder.2")):
+        _put(sd, key, _dense(p[name]))
+    return sd
+
+
+def text_from_numpy(p: dict) -> dict:
+    """TextTower params -> models/text_tower state_dict (flax's per-head
+    query/key/value kernels fold back into one in_proj)."""
+    sd = {"token_embedding.weight": _tensor(p["token_embedding"]),
+          "positional_embedding": _tensor(p["positional_embedding"]),
+          "text_projection": _tensor(p["text_projection"])}
+    _put(sd, "ln_final", _norm(p["ln_final"]))
+    i = 0
+    while f"resblock{i}" in p:
+        blk, pre = p[f"resblock{i}"], f"transformer.resblocks.{i}"
+        attn = blk["attn"]
+        width = np.asarray(attn["query"]["kernel"]).shape[0]
+        sd[f"{pre}.attn.in_proj_weight"] = _tensor(np.concatenate(
+            [np.asarray(attn[n]["kernel"]).reshape(width, width).T
+             for n in ("query", "key", "value")]))
+        sd[f"{pre}.attn.in_proj_bias"] = _tensor(np.concatenate(
+            [np.asarray(attn[n]["bias"]).reshape(-1) for n in ("query", "key", "value")]))
+        sd[f"{pre}.attn.out_proj.weight"] = _tensor(
+            np.asarray(attn["out"]["kernel"]).reshape(width, width).T)
+        sd[f"{pre}.attn.out_proj.bias"] = _tensor(attn["out"]["bias"])
+        _put(sd, f"{pre}.ln_1", _norm(blk["ln_1"]))
+        _put(sd, f"{pre}.ln_2", _norm(blk["ln_2"]))
+        _put(sd, f"{pre}.mlp.c_fc", _dense(blk["mlp_c_fc"]))
+        _put(sd, f"{pre}.mlp.c_proj", _dense(blk["mlp_c_proj"]))
+        i += 1
+    return sd
+
+
+def language_from_numpy(visual=None, hr=None, ae=None, online_ae=None,
+                        text=None) -> dict:
+    """The JAX package's language parameter trees (the layouts
+    tools/convert_weights.py writes), as numpy, -> the port's state
+    dicts, keyed like the arguments given: `visual` (ConvNeXtCLIPVisual
+    params), `hr` and `ae` ({params, batch_stats}), `online_ae`
+    (EncoderDecoderOnline params) and `text` (TextTower params)."""
+    fns = dict(visual=visual_from_numpy, hr=hr_from_numpy, ae=ae_from_numpy,
+               online_ae=online_ae_from_numpy, text=text_from_numpy)
+    given = dict(visual=visual, hr=hr, ae=ae, online_ae=online_ae, text=text)
+    return {k: fns[k](v) for k, v in given.items() if v is not None}
 
 
 def cameras_from_numpy(frames: dict, intrinsics: dict, device="cpu") -> dict:

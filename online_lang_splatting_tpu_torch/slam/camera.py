@@ -60,6 +60,7 @@ class Camera:
     exposure_b: float = 0.0
     grad_mask: Any = None
     gt_lang_feat: Any = None     # (L, 192, 192) supervision map (tensor)
+    coco_lang_feat: Any = None   # (N, 32) two-stage codes (tensor)
     image_host: Any = None       # (3, H, W) host copy (numpy)
     depth_dev: Any = None        # (1, H, W) tensor copy of `depth`
 
@@ -113,6 +114,7 @@ class Camera:
         self.depth_dev = None
         self.grad_mask = None
         self.gt_lang_feat = None
+        self.coco_lang_feat = None
 
 
 def camera_projection(cam: Camera, znear=0.01, zfar=100.0, device=None):

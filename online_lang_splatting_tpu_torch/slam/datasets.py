@@ -46,6 +46,16 @@ class SyntheticDataset(BaseDataset):
         self.tex = self.rng.uniform(0.1, 0.9, size=(8, 8, 3)).astype(np.float32)
         self._traj_n = int(config["Dataset"].get("trajectory_frames", self.n))
         self.poses = [self._pose(i) for i in range(self.n)]
+        # Open-vocabulary ground truth: 2 classes (wall / floor) or 9 (the
+        # wall in 5 world-x bands, the floor in 4 world-z bands).
+        n_sem = int(config["Dataset"].get("semantic_classes", 2))
+        if n_sem not in (2, 9):
+            raise ValueError(f"semantic_classes must be 2 or 9, not {n_sem}")
+        self.SEMANTIC_LABELS = (
+            ("wall", "floor") if n_sem == 2 else
+            ("window", "door", "poster", "shelf", "painting",
+             "rug", "mat", "wooden floor", "tile floor"))
+        self._n_sem = n_sem
 
     def _pose(self, i):
         t = i / max(self._traj_n - 1, 1)
@@ -56,7 +66,7 @@ class SyntheticDataset(BaseDataset):
         w2c[:3, 3] = [-0.15 * t, -0.05 * np.cos(2 * np.pi * t), 0.1 * t]
         return w2c
 
-    def __getitem__(self, idx):
+    def _raycast(self, idx):
         w2c = self.poses[idx]
         c2w = np.linalg.inv(w2c)
         h, w = self.height, self.width
@@ -72,6 +82,28 @@ class SyntheticDataset(BaseDataset):
                                        dirs_w[..., 1], 1e6)
         ty = np.where(ty > 0, ty, 1e6)
         tt = np.minimum(tz, ty)
+        return w2c, org, dirs, dirs_w, tz, tt
+
+    # World-coordinate band edges of the 9-class partition: the wall by x,
+    # the floor by z.
+    _WALL_X_EDGES = (-1.5, 0.5, 2.5, 5.0)
+    _FLOOR_Z_EDGES = (2.2, 2.9, 3.5)
+
+    def gt_semantics(self, idx) -> np.ndarray:
+        """(H, W) int class mask from the known geometry: with 2 classes 0 =
+        wall (the z = 4 plane wins the ray intersection), 1 = floor; with 9
+        the wall bands are classes 0-4 and the floor bands 5-8."""
+        _, org, _, dirs_w, tz, tt = self._raycast(idx)
+        on_wall = tt == tz
+        if self._n_sem == 2:
+            return np.where(on_wall, 0, 1).astype(np.int32)
+        pts = org + tt[..., None] * dirs_w
+        wall_band = np.digitize(pts[..., 0], self._WALL_X_EDGES)
+        floor_band = np.digitize(pts[..., 2], self._FLOOR_Z_EDGES)
+        return np.where(on_wall, wall_band, 5 + floor_band).astype(np.int32)
+
+    def __getitem__(self, idx):
+        w2c, org, dirs, dirs_w, _, tt = self._raycast(idx)
         pts = org + tt[..., None] * dirs_w
         u = np.abs(pts[..., 0] % 4.0) / 4.0
         v = np.abs((pts[..., 1] + pts[..., 2]) % 4.0) / 4.0

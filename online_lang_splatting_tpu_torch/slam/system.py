@@ -1,5 +1,8 @@
 """SLAM orchestration, single-thread mode (port of slam/system.py:
-SLAM.__init__ and run_single_thread). Threaded mode, the GUI, prefetch,
+SLAM.__init__ and run_single_thread). `lang_extractor` (models/sed.py or
+the synthetic harness's) supervises the language channels of each
+keyframe, and `online_ae` (models/checkpoints.OnlineAETrainer) is the
+two-stage codec trained in the loop. Threaded mode, the GUI, prefetch,
 checkpoints and multi-device meshes come with later slices of the port."""
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from .renderer import activate
 
 
 class SLAM:
-    def __init__(self, config: dict, device="cuda"):
+    def __init__(self, config: dict, lang_extractor=None, online_ae=None,
+                 device="cuda"):
         pin_f32_matmul()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -46,7 +50,8 @@ class SLAM:
                    height=height, width=width),
             device=self.device)
         self.backend = BackEnd(config, self.settings, self.proj, self.device,
-                               capacity=config.get("capacity", 1 << 17))
+                               capacity=config.get("capacity", 1 << 17),
+                               lang_extractor=lang_extractor, online_ae=online_ae)
         self.frontend = FrontEnd(config, self.settings, self.device)
         self.use_every_n_frames = 1
         self.kf_interval = config["Training"]["kf_interval"]

@@ -72,3 +72,36 @@ def jax_params_aux(tree):
     params = JG.GaussianParams(*(jnp.asarray(tree[f]) for f in JG.GaussianParams._fields))
     aux = JG.empty_aux(tree["xyz"].shape[0])._replace(active=jnp.asarray(tree["active"]))
     return params, aux
+
+
+def map_from_frame(ds, frame=0, n_pts=400, cap=1024, seed=0):
+    """A numpy map back-projected from a frame: every field in the JAX
+    package's layout."""
+    rng = np.random.default_rng(seed)
+    color, depth, w2c, _, _ = ds[frame]
+    ys, xs = np.nonzero(depth > 0)
+    pick = rng.choice(len(ys), n_pts, replace=False)
+    ys, xs = ys[pick], xs[pick]
+    z = depth[ys, xs]
+    cam = np.stack([(xs - ds.cx) / ds.fx * z, (ys - ds.cy) / ds.fy * z, z], -1)
+    c2w = np.linalg.inv(w2c.astype(np.float64))
+    world = cam @ c2w[:3, :3].T + c2w[:3, 3]
+    tree = dict(
+        xyz=np.zeros((cap, 3), np.float32), features_dc=np.zeros((cap, 1, 3), np.float32),
+        features_rest=np.zeros((cap, 0, 3), np.float32),
+        scaling=np.zeros((cap, 3), np.float32), rotation=np.zeros((cap, 4), np.float32),
+        opacity=np.full((cap, 1), -9.21, np.float32),
+        language=np.zeros((cap, 15), np.float32), active=np.zeros(cap, bool))
+    tree["rotation"][:, 0] = 1.0
+    tree["xyz"][:n_pts] = world
+    tree["features_dc"][:n_pts, 0] = (color[:, ys, xs].T - 0.5) / 0.28209479177387814
+    # Anisotropic, rotated splats: with isotropic ones the rotation gradient
+    # is analytically zero and Adam would turn rounding noise into lr-sized
+    # steps.
+    tree["scaling"][:n_pts] = np.log(0.012 * z[:, None] * rng.uniform(0.5, 1.5, (n_pts, 3)))
+    q = rng.normal(size=(n_pts, 4))
+    tree["rotation"][:n_pts] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    tree["opacity"][:n_pts] = 1.5
+    tree["language"][:n_pts] = rng.normal(size=(n_pts, 15)) * 0.2
+    tree["active"][:n_pts] = True
+    return tree
