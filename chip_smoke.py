@@ -6,7 +6,9 @@
 Phases (each prints its own lines; any failure raises, so the exit code is
 non-zero):
   0. require CUDA; print the card's name and power limit (nvidia-smi);
-  1. build the blend kernels from csrc/ and print the build time;
+  1. build the blend kernels from csrc/ and print the build time, each
+     kernel instance's ptxas registers / spills / static shared memory and
+     its resident CTAs per SM;
   2. kernel vs plain PyTorch version on the card, on the ten golden scenes
      (tests/goldens, tests/goldens_t32) at F_lang 15 and 0, stats on and
      off; the kernel path is also held against the golden npz;
@@ -14,9 +16,15 @@ non-zero):
      on the replica-scale synthetic scene at its full 1200x680, capacity
      131072, tile 32, 15 language channels supervised by the ConvNeXt-L
      CLIP extractor + HR head + one-stage autoencoder (seeded random
-     weights), with quality bounds and kernel launch counts;
+     weights), with quality bounds and kernel launch counts (in total and
+     per channel count);
   4. kernel and plain times at the main path's shapes (final map, last
-     frame's pose), CUDA events, medians;
+     frame's pose), CUDA events, medians: one wrapper call at a time (the
+     host's enqueue included) and the kernel alone (launches back to
+     back); the pairs the blend must evaluate and those that composite
+     there (tiled.blend_work), and from them and the Gaussians the render
+     uses each kernel's bound (operations over the float32 peak or bytes
+     over the memory rate, the larger) and its share of it;
   5. the extractor at full width: frame 0 (1200x680) -> 768^2 -> ConvNeXt-L
      -> HR head -> AE -> (192, 192, 15), unit-norm codes; the card against
      the port's own CPU path at 128^2 on the same weights; median times of
@@ -77,16 +85,25 @@ def phase0_device() -> str:
 
 
 def phase1_build():
-    from online_lang_splatting_tpu_torch.ops.raster import kernels
+    from online_lang_splatting_tpu_torch.ops.raster import kernels, tiled
 
     t0 = time.time()
     kernels.library()
     info = kernels.build_info
     print(f"[phase1] kernels {'built' if info['built'] else 'cached'} in "
           f"{time.time() - t0:.2f} s -> {info['path']}")
-    for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[phase1] ptxas: {line.strip()}")
+    ptxas = kernels.ptxas_summary(info.get("log", ""))
+    for row in ptxas:
+        print(f"[phase1] ptxas {row['kernel']}: {row.get('registers')} registers, "
+              f"{row.get('spill_stores')} B spill stores, {row.get('spill_loads')} B "
+              f"spill loads, {row.get('stack')} B stack, {row.get('smem')} B static smem")
+    if info["built"] and not ptxas:
+        raise AssertionError("no ptxas lines in the build log")
+    resident = {f"{k}<{c}>": kernels.occupancy(k, c)
+                for c in tiled.SUPPORTED_CHANNELS for k in ("fwd", "bwd")}
+    print("[phase1] resident CTAs per SM (256 threads, dynamic shared memory "
+          "included): " + json.dumps(resident))
+    return {"ptxas": ptxas, "resident_ctas": resident}
 
 
 def _norm_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -197,7 +214,9 @@ def _launch_counts(tiled) -> dict:
     return {"fwd_launches": tiled.FWD_STATS.launches,
             "bwd_launches": tiled.BWD_STATS.launches,
             "fwd_plain": tiled.FWD_STATS.plain_calls,
-            "bwd_plain": tiled.BWD_STATS.plain_calls}
+            "bwd_plain": tiled.BWD_STATS.plain_calls,
+            "fwd_by_channels": dict(tiled.FWD_STATS.launches_by_channels),
+            "bwd_by_channels": dict(tiled.BWD_STATS.launches_by_channels)}
 
 
 def _check_launches(counts: dict, where: str):
@@ -303,8 +322,56 @@ def _time(fn, runs: int) -> float:
     return float(np.median(times))
 
 
-def phase4_times(slam, dev):
-    from online_lang_splatting_tpu_torch.ops.raster import api, tiled
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): float32
+# outside the tensor cores, and device memory.
+PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# Flops per (instance, pixel) pair, counted from the kernels' sources: every
+# pair that must be evaluated (tiled.blend_work: alpha reaches 1/255 at a
+# live pixel) ~15 (offset, power, exp, alpha, tests); every contributing
+# pair 2C + 3 more in the forward (T update, weight, C multiply-adds) and
+# 4C + 31 more in the backward (dot product, suffix, C feat-gradient
+# products, the geometry chain, one add per value into the per-instance sum).
+FLOPS_EVAL = 15
+
+
+def _flops(kernel: str, c: int, evaluated: int, contributing: int) -> int:
+    extra = 2 * c + 3 if kernel == "fwd" else 4 * c + 31
+    return FLOPS_EVAL * evaluated + extra * contributing
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound_ms(flops: int, nbytes: int):
+    """The least time the card could take: the larger of operations over
+    the float32 peak and bytes over the memory rate, and which it is."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _time_back_to_back(fn, runs: int, repeats: int = 3) -> float:
+    """Milliseconds per call of `runs` calls enqueued back to back between
+    two CUDA events (median of `repeats`), after one warm-up: the device
+    time of a kernel whose launches the host enqueues faster than the card
+    runs them."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(runs):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / runs)
+    return float(np.median(times))
+
+
+def phase4_times(slam, dev, build):
+    from online_lang_splatting_tpu_torch.ops.raster import api, kernels, tiled
     from online_lang_splatting_tpu_torch.slam.renderer import activate
 
     s = slam.settings
@@ -313,6 +380,7 @@ def phase4_times(slam, dev):
     view = torch.as_tensor(fe.cameras[last].world_view_transform, device=dev)
     inputs = activate(be.params, be.aux.active)
     w, h, tile = s.image_width, s.image_height, s.tile
+    ptxas = {row["kernel"]: row for row in build["ptxas"]}
     results = {}
     with torch.no_grad():
         prep = api.project(inputs.xyz, inputs.opacity, inputs.scales,
@@ -321,8 +389,10 @@ def phase4_times(slam, dev):
         for f_lang in (15, 0):
             geom, feat, binning = tiled.blend_inputs(
                 prep, inputs.language[:, :f_lang], width=w, height=h, tile=tile)
+            c = feat.shape[1]
+            stats = f_lang > 0  # as the main path renders: tracking has no stats
             gen = torch.Generator(device=dev).manual_seed(f_lang)
-            g_feat = torch.randn((feat.shape[1], h, w), generator=gen, device=dev)
+            g_feat = torch.randn((c, h, w), generator=gen, device=dev)
             g_t = torch.randn((h, w), generator=gen, device=dev)
             errs, abs_f, abs_b = _compare_blend(geom, feat, binning, g_feat, g_t,
                                                 width=w, height=h, tile=tile,
@@ -333,44 +403,99 @@ def phase4_times(slam, dev):
             fo = tiled.blend_forward(*args, **kw)
 
             def k_fwd():
-                tiled.blend_forward(*args, stats=f_lang > 0, **kw)
+                tiled.blend_forward(*args, stats=stats, **kw)
 
             def k_fb():
-                o = tiled.blend_forward(*args, stats=f_lang > 0, **kw)
+                o = tiled.blend_forward(*args, stats=stats, **kw)
                 tiled.blend_backward(*args, g_feat, g_t, o[0], o[1], **kw)
 
             def k_bwd():
                 tiled.blend_backward(*args, g_feat, g_t, fo[0], fo[1], **kw)
 
             def p_fwd():
-                tiled.blend_forward_plain(*args, stats=f_lang > 0, **kw)
+                tiled.blend_forward_plain(*args, stats=stats, **kw)
 
             def p_fb():
-                o = tiled.blend_forward_plain(*args, stats=f_lang > 0, **kw)
+                o = tiled.blend_forward_plain(*args, stats=stats, **kw)
                 tiled.blend_backward_plain(*args, g_feat, g_t, o[0], o[1], **kw)
 
             def p_bwd():
                 tiled.blend_backward_plain(*args, g_feat, g_t, fo[0], fo[1], **kw)
 
-            # Turns: plain, kernel, kernel, plain (one card, one call).
+            # Wrapper calls, timed one call at a time (the host's enqueue
+            # included). Turns: plain, kernel, kernel, plain
+            # (one card, one call).
             pf1, kf1 = _time(p_fwd, 3), _time(k_fwd, 20)
             kf2, pf2 = _time(k_fwd, 20), _time(p_fwd, 3)
             kfb, pfb = _time(k_fb, 10), _time(p_fb, 3)
-            kb, pb = _time(k_bwd, 10), _time(p_bwd, 3)
-            r = dict(instances=int(binning.s_gid.numel()),
-                     demand=binning.num_instances,
-                     fwd_ms=(kf1 + kf2) / 2, fwd_plain_ms=(pf1 + pf2) / 2,
-                     fwd_bwd_ms=kfb, fwd_bwd_plain_ms=pfb,
-                     bwd_ms=kb, bwd_plain_ms=pb, fwd_abs_err=abs_f,
-                     bwd_abs_err=abs_b, errs=errs)
+            kb, pb = _time(k_bwd, 20), _time(p_bwd, 3)
+
+            # The kernels alone: launches enqueued back to back into
+            # preallocated buffers (the atomics accumulate across launches,
+            # which the timing does not read). Turns: fwd, bwd, bwd, fwd.
+            bufs = [torch.empty_like(t) for t in fo]
+            d_table = torch.zeros((geom.shape[0], 6 + c), dtype=torch.float32, device=dev)
+            kkw = dict(channels=c, **kw)
+
+            def d_fwd():
+                kernels.launch_forward(*args, *bufs, stats=stats, **kkw)
+
+            def d_bwd():
+                kernels.launch_backward(*args, g_feat, g_t, fo[0], fo[1], d_table, **kkw)
+
+            df1, db1 = _time_back_to_back(d_fwd, 50), _time_back_to_back(d_bwd, 50)
+            db2, df2 = _time_back_to_back(d_bwd, 50), _time_back_to_back(d_fwd, 50)
+
+            evaluated, contributing = tiled.blend_work(*args, **kw)
+            # Bytes each kernel must move, each read or written once: the
+            # rows of the Gaussians this render uses (geom and feat), the
+            # instance list and tile ranges, the images, and per Gaussian
+            # used its n_touched count (forward with stats) or its d_table
+            # row (backward).
+            used = int(torch.unique(binning.s_gid).numel())
+            in_bytes = (used * 4 * (tiled.GEOM_COLS + c)
+                        + _nbytes(binning.s_gid, binning.starts, binning.tile_counts))
+            fwd_bytes = in_bytes + _nbytes(*fo[:3]) + (4 * used if stats else 0)
+            bwd_bytes = in_bytes + _nbytes(g_feat, g_t, fo[0], fo[1]) + 4 * (6 + c) * used
+            r = dict(channels=c, instances=int(binning.s_gid.numel()),
+                     demand=binning.num_instances, gaussians=int(geom.shape[0]),
+                     gaussians_used=used,
+                     pairs_evaluated=evaluated, pairs_contributing=contributing,
+                     fwd_ms=(kf1 + kf2) / 2, bwd_ms=kb, fwd_bwd_ms=kfb,
+                     fwd_device_ms=(df1 + df2) / 2, bwd_device_ms=(db1 + db2) / 2,
+                     fwd_plain_ms=(pf1 + pf2) / 2, bwd_plain_ms=pb, fwd_bwd_plain_ms=pfb,
+                     fwd_abs_err=abs_f, bwd_abs_err=abs_b, errs=errs)
+            for key, nbytes in (("fwd", fwd_bytes), ("bwd", bwd_bytes)):
+                flops = _flops(key, c, evaluated, contributing)
+                bound, by = _bound_ms(flops, nbytes)
+                r.update({f"{key}_flops": flops, f"{key}_bytes": nbytes,
+                          f"{key}_bound_ms": bound, f"{key}_bound_by": by,
+                          f"{key}_share": bound / r[f"{key}_device_ms"]})
             results[f_lang] = r
-            print(f"[phase4] F_lang {f_lang} ({w}x{h}, tile {tile}, "
-                  f"{r['instances']} instances, {int(be.aux.active.sum())} gaussians): "
-                  f"fwd kernel {r['fwd_ms']:.3f} ms vs plain {r['fwd_plain_ms']:.1f} ms "
-                  f"(turns {kf1:.3f}/{kf2:.3f} vs {pf1:.1f}/{pf2:.1f}); "
-                  f"fwd+bwd kernel {kfb:.3f} ms vs plain {pfb:.1f} ms; "
-                  f"bwd kernel {kb:.3f} ms vs plain {pb:.1f} ms; "
-                  f"max abs err fwd {abs_f:.3e} bwd {abs_b:.3e}")
+            print(f"[phase4] F_lang {f_lang} (C = {c}, {w}x{h}, tile {tile}, "
+                  f"{r['instances']} instances of {used} gaussians, "
+                  f"{int(be.aux.active.sum())} active of {r['gaussians']}): pairs "
+                  f"evaluated {evaluated} (alpha >= 1/255 at a live pixel), "
+                  f"contributing {contributing}, in the tile ranges "
+                  f"{r['instances'] * tile * tile}")
+            print(f"[phase4] F_lang {f_lang}: one wrapper call (host enqueue included, "
+                  f"timed one at a time): fwd {r['fwd_ms']:.4f} ms (turns {kf1:.4f}/{kf2:.4f}) "
+                  f"vs plain {r['fwd_plain_ms']:.1f} ms (turns {pf1:.1f}/{pf2:.1f}); bwd "
+                  f"{kb:.4f} ms vs plain {pb:.1f} ms; fwd+bwd {kfb:.4f} ms vs plain "
+                  f"{pfb:.1f} ms; max abs err fwd {abs_f:.3e} bwd {abs_b:.3e}")
+            print(f"[phase4] F_lang {f_lang}: kernels alone (launches back to back): fwd "
+                  f"{r['fwd_device_ms']:.4f} ms (turns {df1:.4f}/{df2:.4f}), bwd "
+                  f"{r['bwd_device_ms']:.4f} ms (turns {db1:.4f}/{db2:.4f})")
+            for key, inst in (("fwd", f"fwd_kernel<{c}>"), ("bwd", f"bwd_kernel<{c}>")):
+                pt = ptxas.get(inst, {})
+                print(f"[phase4] F_lang {f_lang} {key}: {r[f'{key}_flops'] / 1e9:.3f} GFLOP, "
+                      f"{r[f'{key}_bytes'] / 1e6:.1f} MB -> bound "
+                      f"{r[f'{key}_bound_ms']:.4f} ms by {r[f'{key}_bound_by']}; kernel "
+                      f"alone {r[f'{key}_device_ms']:.4f} ms, share {r[f'{key}_share']:.3f}; ptxas "
+                      f"{inst}: {pt.get('registers')} registers, {pt.get('spill_stores')} B "
+                      f"spill stores, {pt.get('spill_loads')} B spill loads, "
+                      f"{pt.get('smem')} B static smem; resident CTAs per SM "
+                      f"{build['resident_ctas'].get(inst.replace('_kernel', ''))}")
     return results
 
 
@@ -505,27 +630,40 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    phase1_build()
+    build = phase1_build()
     phase2_goldens(dev)
     slam, counts, main_path = phase3_main_path(args.config, args.frames, dev)
-    times = phase4_times(slam, dev)
+    times = phase4_times(slam, dev, build)
     extractor = phase5_extractor(slam, dev)
     del slam
     miou = phase6_miou(args.config, dev)
 
+    kernels = []
     r15 = times[15]
-    kernels = [
-        {"name": "blend_fwd", "route": "cuda",
-         "source": "online_lang_splatting_tpu_torch/csrc/blend_fwd.cu",
-         "replaces": "online_lang_splatting_tpu/ops/raster/tiled.py:405",
-         "launches": counts["fwd_launches"], "max_abs_err": r15["fwd_abs_err"],
-         "ms": r15["fwd_ms"], "plain_ms": r15["fwd_plain_ms"]},
-        {"name": "blend_bwd", "route": "cuda",
-         "source": "online_lang_splatting_tpu_torch/csrc/blend_bwd.cu",
-         "replaces": "online_lang_splatting_tpu/ops/raster/tiled.py:633",
-         "launches": counts["bwd_launches"], "max_abs_err": r15["bwd_abs_err"],
-         "ms": r15["bwd_ms"], "plain_ms": r15["bwd_plain_ms"]},
-    ]
+    for key, name, line in (("fwd", "blend_fwd", 405), ("bwd", "blend_bwd", 633)):
+        row = {"name": name, "route": "cuda",
+               "source": f"online_lang_splatting_tpu_torch/csrc/{name}.cu",
+               "replaces": f"online_lang_splatting_tpu/ops/raster/tiled.py:{line}",
+               "launches": counts[f"{key}_launches"],
+               "launches_by_channels": counts[f"{key}_by_channels"],
+               "max_abs_err": r15[f"{key}_abs_err"],
+               "channels": r15["channels"],
+               # ms: one wrapper call with the host's enqueue, timed on its
+               # own; device_ms: the kernel alone, launches back to back;
+               # share: bound_ms / device_ms.
+               "ms": r15[f"{key}_ms"], "device_ms": r15[f"{key}_device_ms"],
+               "plain_ms": r15[f"{key}_plain_ms"],
+               "bound_ms": r15[f"{key}_bound_ms"], "bound_by": r15[f"{key}_bound_by"],
+               "share": r15[f"{key}_share"],
+               # No PyTorch call composites depth-sorted splats per tile.
+               "library_ms": None,
+               "by_channels": {r["channels"]: {
+                   k: r[f"{key}_{k}"] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "share", "flops", "bytes")}
+                   | {k: r[k] for k in ("pairs_evaluated", "pairs_contributing",
+                                        "gaussians_used")}
+                   for r in times.values()}}
+        kernels.append(row)
     print(f"[done] card {smi}")
     print(json.dumps({"language": {"card": smi, "main_path": main_path,
                                    "extractor": extractor, "miou": miou}}, default=float))

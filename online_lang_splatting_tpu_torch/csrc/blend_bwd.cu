@@ -14,28 +14,81 @@
 // of a product and the numbers track the JAX reference closely when alpha
 // is near the 0.99 clamp.
 //
-// What bounds it on this card: the per-instance reductions. Every
-// (instance, pixel) contribution adds 6 + C partial gradients that must be
-// summed over the tile's pixels and then over the tiles of the Gaussian.
-// Per-pixel state (T, suffix carry, C cotangents) lives in registers.
+// What bounds it on this card: arithmetic. Every pair a live pixel
+// evaluates costs ~15 flops and every contributing pair ~4C + 31 more (the
+// channel dot product, the C feat-gradient products, the geometry chain and
+// one add per value into the per-instance sum over pixels); at the main
+// path's shapes (1200x680, tile 32, ~55.5k instances, C = 19) at most 54M
+// pairs, ~7 GFLOP, ~104 us at 67 TFLOP/s, against ~158 MB (two (C, H, W)
+// images read, d_table written), ~47 us at 3.35 TB/s. chip_smoke.py phase 4
+// counts the pairs this run's data needs (tiled.blend_work) and prints the
+// bound beside the time.
 //
-// What the design does about it: one block of 256 threads per tile, 4
-// pixels per thread at tile 32, the channel count a template parameter.
-// Each thread sums its own pixels, a warp reduces with shuffles (skipped
-// when no lane of the warp contributed), one shared-memory atomicAdd per
-// warp and value collects the block's rows for a batch of 128 instances,
-// and one global float atomicAdd per (tile, Gaussian, value) lands them in
-// d_table. Float atomics make the summation order vary from run to run;
-// the tests hold gradients at the goldens' 2e-3 normalized tolerance.
+// What the design does about the five points that kept the first,
+// per-tile version (2.05 ms at C = 19) far from that bound:
+// 1. Occupancy: one CTA per 16x16 quadrant, one pixel per thread. The
+//    per-thread state is C cotangents + T, S, x, y, and the launch bound
+//    asks for 3 resident CTAs per SM (<= 80 registers).
+// 2. The per-instance reduction over the warp's pixels: the 6 + C values
+//    are padded to 32 (16 for C <= 10) and reduce-scattered by recursive
+//    halving, 16 + 8 + 4 + 2 + 1 = 31 shuffles (15 + 1 at 16), after which
+//    lane v holds the warp's total of value v; lanes v < 6 + C then issue
+//    one shared atomicAdd each, to distinct addresses: one instruction per
+//    warp and instance instead of 25 butterflies and 25 serialised atomics.
+//    A warp none of whose lanes contributed skips it.
+// 3. The gather: the next batch's rows arrive by cp.async into the other
+//    half of a double buffer while the current batch is walked.
+// 4. --fmad=false keeps the alpha / T / power chain bit-identical to the
+//    forward's, so a pixel terminates at the same instance in both
+//    directions; gdot, the suffix update, the feat-gradient rows and the
+//    geometry-gradient sums, which no threshold reads, use explicit fused
+//    multiply-adds.
+// 5. Uneven work: a tile of 32 is 4 CTAs (3344 instead of 836 at the main
+//    path's shapes), so the longest tile's walk is split 4 ways, and a
+//    quadrant whose pixels have all terminated stops walking. Within the
+//    walk, the rows whose conservative 1/255 reach box misses the CTA's
+//    square are dropped by an order-preserving compaction (as in the
+//    forward: a dropped pair is one the blend would skip).
+//    The 4 quadrant CTAs of a tile run independently, and each issues its
+//    own global atomics, 4x as many as one CTA per tile. Launching them as
+//    one thread block cluster that sums the rows through distributed shared
+//    memory before the atomics was measured slower on the H100: its two
+//    cluster barriers per batch cost more than the atomics they save
+//    (PERF.md).
+// Float atomics make the summation order vary from run to run; the tests
+// hold gradients at the goldens' 2e-3 normalized tolerance.
 
 #include "blend_common.cuh"
 
 namespace blend {
 
-constexpr int BWD_BATCH = 128;
+// Reduce-scatter of NV values over a warp by recursive halving: on return,
+// v[0] of lane L holds the warp's total of value L % NV (NV = 16 folds the
+// two half warps together with one more shuffle).
+template <int NV, int O = NV / 2>
+__device__ __forceinline__ void reduce_scatter(float (&v)[NV], int lane) {
+  const bool hi = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = hi ? v[i] : v[i + O];
+    const float keep = hi ? v[i + O] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, O);
+  }
+  if constexpr (O > 1) {
+    reduce_scatter<NV, O / 2>(v, lane);
+  } else if constexpr (NV == 16) {
+    v[0] += __shfl_xor_sync(FULL, v[0], 16);
+  }
+}
 
-template <int C, int PPT>
-__global__ void __launch_bounds__(BLOCK)
+template <int C>
+constexpr size_t bwd_smem() {
+  return sizeof(float) * (2 * BATCH * (GEOM_COLS + C) + BATCH * (6 + C)) +
+         sizeof(int) * (BATCH + BLOCK / 32);
+}
+
+template <int C>
+__global__ void __launch_bounds__(BLOCK, 3)
 bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
            const int* __restrict__ s_gid, const int* __restrict__ starts,
            const int* __restrict__ counts, const float* __restrict__ g_feat,
@@ -43,144 +96,141 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
            const float* __restrict__ out_t, float* __restrict__ d_table,
            TileGeometry tg) {
   constexpr int G = 6 + C;
-  __shared__ float s_geom[BWD_BATCH][6];
-  __shared__ float s_feat[BWD_BATCH * C];
-  __shared__ float s_grad[BWD_BATCH * G];
-  __shared__ int s_ids[BWD_BATCH];
+  constexpr int NV = G <= 16 ? 16 : 32;
+  extern __shared__ float4 smem4[];
+  float* s_geom = reinterpret_cast<float*>(smem4);   // [2][BATCH][8]
+  float* s_feat = s_geom + 2 * BATCH * GEOM_COLS;    // [2][BATCH * C]
+  float* s_grad = s_feat + 2 * BATCH * C;                     // [BATCH * G]
+  int* s_list = reinterpret_cast<int*>(s_grad + BATCH * G);  // [BATCH]
+  int* s_warp_count = s_list + BATCH;                         // [BLOCK / 32]
 
-  const int tile_id = blockIdx.x;
-  const int start = starts[tile_id];
-  const int count = counts[tile_id];
+  const Quad quad = quad_of(tg);
+  int px, py;
+  bool live = pixel_of(tg, quad, &px, &py);
+  const int start = starts[quad.tile_id];
+  const int count = counts[quad.tile_id];
   const int lane = threadIdx.x & 31;
+  const float fx = (float)px, fy = (float)py;
+  const float4 rect = make_float4((float)quad.x0, (float)(quad.x0 + tg.quad - 1),
+                                  (float)quad.y0, (float)(quad.y0 + tg.quad - 1));
   const size_t hw = (size_t)tg.width * tg.height;
 
-  bool live[PPT];
-  float fx[PPT], fy[PPT], T[PPT], S[PPT], gpix[PPT][C];
+  float T = 1.f, S = 0.f, gpix[C];
 #pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    int px, py;
-    live[k] = pixel_of(tg, tile_id, k, &px, &py);
-    fx[k] = (float)px;
-    fy[k] = (float)py;
-    T[k] = 1.f;
-    S[k] = 0.f;
+  for (int c = 0; c < C; ++c) gpix[c] = 0.f;
+  if (live) {
+    const size_t idx = (size_t)py * tg.width + px;
+    float total = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c) gpix[k][c] = 0.f;
-    if (live[k]) {
-      const size_t idx = (size_t)py * tg.width + px;
-      float total = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        gpix[k][c] = g_feat[c * hw + idx];
-        total += gpix[k][c] * out_feat[c * hw + idx];
-      }
-      S[k] = total + g_t[idx] * out_t[idx];
+    for (int c = 0; c < C; ++c) {
+      gpix[c] = g_feat[c * hw + idx];
+      total = __fmaf_rn(gpix[c], out_feat[c * hw + idx], total);
     }
+    S = __fmaf_rn(g_t[idx], out_t[idx], total);
   }
 
-  for (int b0 = 0; b0 < count; b0 += BWD_BATCH) {
-    int alive = 0;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) alive |= live[k] ? 1 : 0;
-    // Also the barrier between the previous batch's flush and this load.
-    if (__syncthreads_count(alive) == 0) break;
-    const int n = min(BWD_BATCH, count - b0);
-    const int i = threadIdx.x;
-    if (i < n) {
-      const int g = s_gid[start + b0 + i];
-      s_ids[i] = g;
-      const float* gp = geom + (size_t)g * GEOM_COLS;
-#pragma unroll
-      for (int q = 0; q < 6; ++q) s_geom[i][q] = gp[q];
-      const float* fp = feat + (size_t)g * C;
-#pragma unroll
-      for (int c = 0; c < C; ++c) s_feat[i * C + c] = fp[c];
-    }
-    for (int q = i; q < n * G; q += BLOCK) s_grad[q] = 0.f;
+  const int* ids = s_gid + start;
+  if (count > 0) load_batch<C>(geom, feat, ids, min(BATCH, count), s_geom, s_feat);
+  __pipeline_commit();
+
+  int buf = 0;
+  for (int b0 = 0; b0 < count; b0 += BATCH, buf ^= 1) {
+    // Also the barrier between the previous batch's flush and this batch's
+    // zeroing of s_grad / copies into the other buffer.
+    if (__syncthreads_count(live) == 0) break;
+    const int n = min(BATCH, count - b0);
+    if (b0 + BATCH < count)
+      load_batch<C>(geom, feat, ids + b0 + BATCH, min(BATCH, count - b0 - BATCH),
+                    s_geom + (buf ^ 1) * BATCH * GEOM_COLS,
+                    s_feat + (buf ^ 1) * BATCH * C);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // this batch's group has landed
+    for (int q = threadIdx.x; q < n * G; q += BLOCK) s_grad[q] = 0.f;
     __syncthreads();
 
-    for (int j = 0; j < n; ++j) {
-      const float gx = s_geom[j][0], gy = s_geom[j][1];
-      const float ca = s_geom[j][2], cb = s_geom[j][3], cc = s_geom[j][4];
-      const float op = s_geom[j][5];
-      float lg[G];
+    const float* bg = s_geom + buf * BATCH * GEOM_COLS;
+    const float* bf = s_feat + buf * BATCH * C;
+    const int m = select_rows(bg, n, rect, s_list, s_warp_count);
+    for (int k = 0; k < m; ++k) {
+      const int j = s_list[k];
+      float v[NV];
 #pragma unroll
-      for (int v = 0; v < G; ++v) lg[v] = 0.f;
+      for (int q = 0; q < NV; ++q) v[q] = 0.f;
       bool any = false;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        if (!live[k]) continue;
-        const float dx = gx - fx[k];
-        const float dy = gy - fy[k];
+      if (live) {
+        const float4 g0 = *reinterpret_cast<const float4*>(bg + j * GEOM_COLS);
+        const float2 g1 = *reinterpret_cast<const float2*>(bg + j * GEOM_COLS + 4);
+        const float ca = g0.z, cb = g0.w, cc = g1.x, op = g1.y;
+        const float dx = g0.x - fx;
+        const float dy = g0.y - fy;
         const float power = power_of(dx, dy, ca, cb, cc);
-        if (power > 0.f) continue;
-        const float expp = expf(power);
-        const float alpha_raw = op * expp;
-        const float alpha = fminf(ALPHA_MAX, alpha_raw);
-        if (alpha < ALPHA_MIN) continue;
-        const float one_minus = 1.f - alpha;
-        const float test_t = T[k] * one_minus;
-        if (test_t < T_EPS) {
-          live[k] = false;
-          continue;
-        }
-        const float w = alpha * T[k];
-        float gdot = 0.f;
+        if (!(power > 0.f)) {  // NaN falls through, as in the forward
+          const float expp = expf(power);
+          const float alpha_raw = op * expp;
+          const float alpha = fminf(ALPHA_MAX, alpha_raw);
+          if (!(alpha < ALPHA_MIN)) {
+            const float one_minus = 1.f - alpha;
+            const float test_t = T * one_minus;
+            if (test_t < T_EPS) {
+              live = false;
+            } else {
+              const float w = alpha * T;
+              float gdot = 0.f;
 #pragma unroll
-        for (int c = 0; c < C; ++c) gdot += s_feat[j * C + c] * gpix[k][c];
-        S[k] -= w * gdot;  // suffix: everything composited after this one
-        const float dalpha = T[k] * gdot - S[k] / one_minus;
+              for (int c = 0; c < C; ++c) gdot = __fmaf_rn(bf[j * C + c], gpix[c], gdot);
+              S = __fmaf_rn(-w, gdot, S);  // suffix: everything composited after this one
+              const float dalpha = T * gdot - S / one_minus;
 #pragma unroll
-        for (int c = 0; c < C; ++c) lg[6 + c] += w * gpix[k][c];
-        if (alpha_raw < ALPHA_MAX) {
-          const float de = dalpha * expp;
-          const float dpower = de * op;
-          const float ddx = dpower * dx;
-          const float ddy = dpower * dy;
-          lg[0] -= ddx * ca + ddy * cb;
-          lg[1] -= ddy * cc + ddx * cb;
-          lg[2] -= 0.5f * ddx * dx;
-          lg[3] -= ddx * dy;
-          lg[4] -= 0.5f * ddy * dy;
-          lg[5] += de;
+              for (int c = 0; c < C; ++c) v[6 + c] = w * gpix[c];
+              if (alpha_raw < ALPHA_MAX) {
+                const float de = dalpha * expp;
+                const float dpower = de * op;
+                const float ddx = dpower * dx;
+                const float ddy = dpower * dy;
+                v[0] = -__fmaf_rn(ddx, ca, ddy * cb);
+                v[1] = -__fmaf_rn(ddy, cc, ddx * cb);
+                v[2] = -0.5f * ddx * dx;
+                v[3] = -ddx * dy;
+                v[4] = -0.5f * ddy * dy;
+                v[5] = de;
+              }
+              T = test_t;
+              any = true;
+            }
+          }
         }
-        T[k] = test_t;
-        any = true;
       }
-      if (__any_sync(0xffffffffu, any)) {
-#pragma unroll
-        for (int v = 0; v < G; ++v) {
-          const float tot = warp_sum(lg[v]);
-          if (lane == 0 && tot != 0.f) atomicAdd(&s_grad[j * G + v], tot);
-        }
+      if (__any_sync(FULL, any)) {
+        reduce_scatter<NV>(v, lane);
+        if (lane < G && v[0] != 0.f) atomicAdd(&s_grad[j * G + lane], v[0]);
       }
     }
+
     __syncthreads();
-    for (int q = i; q < n * G; q += BLOCK) {
-      const float v = s_grad[q];
-      if (v != 0.f) atomicAdd(&d_table[(size_t)s_ids[q / G] * G + q % G], v);
+    for (int q = threadIdx.x; q < n * G; q += BLOCK) {
+      const float tot = s_grad[q];
+      if (tot != 0.f) atomicAdd(&d_table[(size_t)ids[b0 + q / G] * G + q % G], tot);
     }
   }
+  __pipeline_wait_prior(0);  // no copy outlives the CTA
 }
 
 template <int C>
-static void launch_bwd(int ppt, dim3 grid, cudaStream_t s, const float* geom,
-                       const float* feat, const int* s_gid, const int* starts,
-                       const int* counts, const float* g_feat,
-                       const float* g_t, const float* out_feat,
-                       const float* out_t, float* d_table, TileGeometry tg) {
-  if (ppt == 1)
-    bwd_kernel<C, 1><<<grid, BLOCK, 0, s>>>(geom, feat, s_gid, starts, counts,
-        g_feat, g_t, out_feat, out_t, d_table, tg);
-  else
-    bwd_kernel<C, 4><<<grid, BLOCK, 0, s>>>(geom, feat, s_gid, starts, counts,
-        g_feat, g_t, out_feat, out_t, d_table, tg);
+static cudaError_t launch_bwd(cudaStream_t s, const float* geom,
+                              const float* feat, const int* s_gid,
+                              const int* starts, const int* counts,
+                              const float* g_feat, const float* g_t,
+                              const float* out_feat, const float* out_t,
+                              float* d_table, const TileGeometry& tg) {
+  return launch(bwd_kernel<C>, num_ctas(tg), bwd_smem<C>(), s, geom, feat,
+                s_gid, starts, counts, g_feat, g_t, out_feat, out_t, d_table,
+                tg);
 }
 
 }  // namespace blend
 
 // Plain C entry point for ctypes. d_table must be zeroed by the caller.
-// Returns cudaGetLastError() after the launch.
+// Returns the launch's error code, then cudaGetLastError().
 extern "C" int blend_bwd(const float* geom, const float* feat,
                          const int* s_gid, const int* starts,
                          const int* counts, const float* g_feat,
@@ -188,28 +238,38 @@ extern "C" int blend_bwd(const float* geom, const float* feat,
                          const float* out_t, float* d_table, int channels,
                          int width, int height, int tile, void* stream) {
   using namespace blend;
-  // One pixel per thread up to tile 16, four up to tile 32.
-  if (tile <= 0 || tile * tile > 4 * BLOCK) return (int)cudaErrorInvalidValue;
-  const int ppt = tile * tile <= BLOCK ? 1 : 4;
-  TileGeometry tg{width, height, tile, (width + tile - 1) / tile};
-  const int tiles_y = (height + tile - 1) / tile;
-  const dim3 grid(tg.tiles_x * tiles_y);
+  TileGeometry tg;
+  if (!make_geometry(width, height, tile, &tg)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
   switch (channels) {
     case 4:
-      launch_bwd<4>(ppt, grid, s, geom, feat, s_gid, starts, counts, g_feat,
-                    g_t, out_feat, out_t, d_table, tg);
+      err = launch_bwd<4>(s, geom, feat, s_gid, starts, counts, g_feat, g_t,
+                          out_feat, out_t, d_table, tg);
       break;
     case 7:
-      launch_bwd<7>(ppt, grid, s, geom, feat, s_gid, starts, counts, g_feat,
-                    g_t, out_feat, out_t, d_table, tg);
+      err = launch_bwd<7>(s, geom, feat, s_gid, starts, counts, g_feat, g_t,
+                          out_feat, out_t, d_table, tg);
       break;
     case 19:
-      launch_bwd<19>(ppt, grid, s, geom, feat, s_gid, starts, counts, g_feat,
-                     g_t, out_feat, out_t, d_table, tg);
+      err = launch_bwd<19>(s, geom, feat, s_gid, starts, counts, g_feat, g_t,
+                           out_feat, out_t, d_table, tg);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// CTAs of the backward kernel at `channels` resident per SM, for the
+// diagnostics of chip_smoke.py.
+extern "C" int blend_bwd_occupancy(int channels, int* blocks) {
+  using namespace blend;
+  switch (channels) {
+    case 4: return (int)occupancy(bwd_kernel<4>, bwd_smem<4>(), blocks);
+    case 7: return (int)occupancy(bwd_kernel<7>, bwd_smem<7>(), blocks);
+    case 19: return (int)occupancy(bwd_kernel<19>, bwd_smem<19>(), blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -6,23 +6,34 @@
 // Per render: s_gid (S,) int32 Gaussian ids in (tile, depth, id) order,
 // starts / counts (T,) int32 per tile. Images are (C, H, W) / (H, W).
 //
-// One thread block of BLOCK threads composites one tile; each thread owns
-// PPT pixels of it (pixel p = threadIdx.x + k * BLOCK, row-major in the
-// tile), so a 32x32 tile is 256 threads x 4 pixels and keeps the per-pixel
-// accumulators in registers.
+// Work split: one CTA of BLOCK = 256 threads owns one quadrant of a tile,
+// one pixel per thread. A quadrant is 16x16 pixels; a tile of 32 is split
+// into 2x2 quadrants (4 independent CTAs, consecutive in blockIdx.x), and a
+// tile of 16 or less is one CTA of its own.
+//
+// Every CTA walks its tile's instance range in batches of BATCH rows. The
+// next batch's rows are gathered through s_gid into shared memory with
+// cp.async (double buffered) while the current batch is composited. TMA
+// cannot gather rows by index, so these are per-thread asynchronous copies:
+// two 16-byte copies per geom row, and 16-, 8- or 4-byte copies per feat row
+// as the row width allows.
 //
 // The constants are the float32 values of the JAX reference's Python
 // constants (ops/raster/config.py), so thresholds compare identically.
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace blend {
 
 constexpr int BLOCK = 256;
+constexpr int QUAD = 16;  // side of the pixel square one CTA owns
+constexpr int BATCH = 128;
 constexpr int GEOM_COLS = 8;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float ALPHA_MAX = 9.900000095e-01f;   // 0.99
 constexpr float ALPHA_MIN = 3.921568859e-03f;   // 1 / 255
 constexpr float T_EPS = 9.999999747e-05f;       // 1e-4
@@ -30,32 +41,165 @@ constexpr float N_TOUCHED_T = 0.5f;
 
 struct TileGeometry {
   int width, height, tile, tiles_x;
+  int quad;  // pixels per side of a CTA's square: min(tile, QUAD)
+  int nq;    // quadrants per tile side: tile / quad (1 or 2)
 };
 
-// Pixel coordinates of this thread's k-th pixel; false when it lies past
-// the tile or the image edge (such pixels are inert: nothing reads them).
-__device__ __forceinline__ bool pixel_of(const TileGeometry& g, int tile_id,
-                                         int k, int* px, int* py) {
-  const int p = threadIdx.x + k * BLOCK;
-  const int lx = p % g.tile;
-  const int ly = p / g.tile;
-  *px = (tile_id % g.tiles_x) * g.tile + lx;
-  *py = (tile_id / g.tiles_x) * g.tile + ly;
-  return p < g.tile * g.tile && *px < g.width && *py < g.height;
+// Validates the tile size and fills in the split; false when the kernels do
+// not take this tile (they take tiles of 1..16 and 32).
+inline bool make_geometry(int width, int height, int tile, TileGeometry* g) {
+  if (tile <= 0 || (tile > QUAD && tile != 2 * QUAD)) return false;
+  g->width = width;
+  g->height = height;
+  g->tile = tile;
+  g->tiles_x = (width + tile - 1) / tile;
+  g->quad = tile < QUAD ? tile : QUAD;
+  g->nq = tile / g->quad;
+  return true;
+}
+
+inline int num_ctas(const TileGeometry& g) {
+  const int tiles_y = (g.height + g.tile - 1) / g.tile;
+  return g.tiles_x * tiles_y * g.nq * g.nq;
+}
+
+// This CTA's tile and the top-left pixel of its square.
+struct Quad {
+  int tile_id, x0, y0;
+};
+
+__device__ __forceinline__ Quad quad_of(const TileGeometry& g) {
+  const int per_tile = g.nq * g.nq;
+  const int t = blockIdx.x / per_tile;
+  const int q = blockIdx.x % per_tile;
+  return {t, (t % g.tiles_x) * g.tile + (q % g.nq) * g.quad,
+          (t / g.tiles_x) * g.tile + (q / g.nq) * g.quad};
+}
+
+// This thread's pixel; false when it lies past the square or the image edge
+// (such pixels are inert: nothing reads them).
+__device__ __forceinline__ bool pixel_of(const TileGeometry& g, const Quad& q,
+                                         int* px, int* py) {
+  *px = q.x0 + (int)threadIdx.x % g.quad;
+  *py = q.y0 + (int)threadIdx.x / g.quad;
+  return (int)threadIdx.x < g.quad * g.quad && *px < g.width && *py < g.height;
 }
 
 // The blend's per-(instance, pixel) power, in the reference's operation
 // order: power = -0.5 (a dx^2 + c dy^2) - b dx dy with d = mean - pixel.
+// Built with --fmad=false, so this and the alpha / T chain that reads it
+// round exactly as the reference does.
 __device__ __forceinline__ float power_of(float dx, float dy, float ca,
                                           float cb, float cc) {
   return -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Reach box (xmin, xmax, ymin, ymax) of an instance: a pixel outside it
+// cannot reach alpha >= ALPHA_MIN, so the blend skips the pair there
+// whatever this box is; culling with it changes no output. alpha >= 1/255
+// needs op exp(power) >= 1/255, that is q = a dx^2 + 2b dx dy + c dy^2
+// <= 2 ln(255 op), an ellipse whose box has half extents
+// sqrt(2 ln(255 op) c / det) and sqrt(2 ln(255 op) a / det). The margins
+// (+0.01 on the log, x1.01 and +0.5 px on the extents) are far above the
+// float rounding of the blend's own power and alpha when the conic is
+// positive definite with det > 0.01 a c, where the rounding of q is below
+// ~1.4e-4 q. Any other conic, or a NaN, gets the infinite box (never
+// culled); op < 1/255 the empty one (alpha_raw <= op where power <= 0).
+__device__ __forceinline__ float4 reach_box(float gx, float gy, float ca,
+                                            float cb, float cc, float op) {
+  const float inf = __int_as_float(0x7f800000);
+  if (op < ALPHA_MIN) return make_float4(inf, -inf, inf, -inf);
+  const float det = ca * cc - cb * cb;
+  if (ca > 0.f && cc > 0.f && det > 0.01f * ca * cc) {
+    const float q = 2.f * (logf(op / ALPHA_MIN) + 0.01f);
+    const float rx = sqrtf(q * cc / det) * 1.01f + 0.5f;
+    const float ry = sqrtf(q * ca / det) * 1.01f + 0.5f;
+    if (rx < inf && ry < inf) return make_float4(gx - rx, gx + rx, gy - ry, gy + ry);
+  }
+  return make_float4(-inf, inf, -inf, inf);
+}
+
+// Whether a box meets a rectangle, both (x0, x1, y0, y1); true on NaN.
+__device__ __forceinline__ bool meets(const float4& box, const float4& r) {
+  return !(box.y < r.x || box.x > r.y || box.w < r.z || box.z > r.w);
+}
+
+// Order-preserving selection of the batch's rows [0, n) whose reach box
+// meets this CTA's square `rect` (x0, x1, y0, y1): thread i tests row i,
+// and the rows kept go to s_list in their tile-range order. Every thread
+// of the CTA calls it once the batch's rows are visible in shared memory;
+// it returns the count and ends with a barrier.
+__device__ __forceinline__ int select_rows(const float* s_geom, int n,
+                                           const float4& rect, int* s_list,
+                                           int* s_warp_count) {
+  const int i = threadIdx.x, lane = i & 31, warp = i >> 5;
+  bool keep = false;
+  if (i < n) {
+    const float* g = s_geom + i * GEOM_COLS;
+    keep = meets(reach_box(g[0], g[1], g[2], g[3], g[4], g[5]), rect);
+  }
+  const unsigned ballot = __ballot_sync(FULL, keep);
+  if (lane == 0) s_warp_count[warp] = __popc(ballot);
+  __syncthreads();
+  int offset = 0, total = 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+  for (int w = 0; w < BLOCK / 32; ++w) {
+    const int c = s_warp_count[w];
+    offset += w < warp ? c : 0;
+    total += c;
+  }
+  if (keep) s_list[offset + __popc(ballot & ((1u << lane) - 1u))] = i;
+  __syncthreads();
+  return total;
+}
+
+// Queue the asynchronous copy of rows [b0, b0 + n) of a tile's instance
+// range into one buffer: thread i copies instance i's geom row (32 bytes)
+// and feat row (C floats). Commit is left to the caller.
+template <int C>
+__device__ __forceinline__ void load_batch(const float* __restrict__ geom,
+                                           const float* __restrict__ feat,
+                                           const int* __restrict__ ids, int n,
+                                           float* s_geom, float* s_feat) {
+  const int i = threadIdx.x;
+  if (i >= n) return;
+  const size_t g = (size_t)ids[i];
+  const float* gp = geom + g * GEOM_COLS;
+  __pipeline_memcpy_async(s_geom + i * GEOM_COLS, gp, 16);
+  __pipeline_memcpy_async(s_geom + i * GEOM_COLS + 4, gp + 4, 16);
+  const float* fp = feat + g * C;
+  float* dst = s_feat + i * C;
+  // Rows of C floats are 16-byte aligned when C % 4 == 0, 8-byte when even.
+  constexpr int W = C % 4 == 0 ? 4 : (C % 2 == 0 ? 2 : 1);
+#pragma unroll
+  for (int c = 0; c < C; c += W) __pipeline_memcpy_async(dst + c, fp + c, 4 * W);
+}
+
+// Launch on `stream` with `smem` bytes of dynamic shared memory (opted in
+// above the 48 KB default).
+template <typename... Exp, typename... Act>
+cudaError_t launch(void (*kernel)(Exp...), int grid, size_t smem,
+                   cudaStream_t stream, Act&&... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, BLOCK, smem, stream>>>(static_cast<Act&&>(args)...);
+  return cudaGetLastError();
+}
+
+// CTAs of `kernel` resident on one SM at `smem` bytes of dynamic shared
+// memory.
+template <typename K>
+cudaError_t occupancy(K kernel, size_t smem, int* blocks) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, BLOCK,
+                                                       smem);
 }
 
 }  // namespace blend

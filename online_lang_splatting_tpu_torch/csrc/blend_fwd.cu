@@ -10,147 +10,164 @@
 // range) and the per-Gaussian n_touched (contributions with T > 0.5 on
 // in-image pixels).
 //
-// What bounds it on this card: each tile block streams its instance range
-// from device memory once (a gather through s_gid into shared memory), then
-// does ~20 flops per (instance, pixel) plus C fused multiply-adds for the
-// contributing ones; the per-pixel state (T, C accumulators, last index)
-// lives in registers, and at tile 32 with C = 19 that register budget is
-// the limit on how many blocks an SM holds.
+// What bounds it on this card: arithmetic. Every (instance, pixel) pair a
+// live pixel evaluates costs ~15 flops (offset, power, exp, alpha, tests)
+// and every contributing pair 2C + 3 more; at the main path's shapes
+// (1200x680, tile 32, ~55.5k instances, C = 19) that is at most
+// 55.5k x 1024 = 54M pairs, ~2.9 GFLOP, ~44 us at 67 TFLOP/s, against
+// ~80 MB of images and rows, ~24 us at 3.35 TB/s. chip_smoke.py phase 4
+// counts the pairs this run's data needs (tiled.blend_work) and prints
+// the bound beside the time.
 //
-// What the design does about it: one block of 256 threads per tile with 4
-// pixels per thread at tile 32 (1024 threads would leave <= 64 registers
-// each and spill the 19 accumulators); the channel count C and pixels per
-// thread are template parameters, so the accumulators are fixed-size
-// register arrays. Instances arrive in batches of 256 through shared
-// memory and are read as broadcasts; a block stops once every pixel has
-// terminated. n_touched is an exact integer count: a warp reduction per
-// instance, a shared-memory atomicAdd per warp, one global atomicAdd per
-// (tile, Gaussian). The Pallas kernel's chunk grid, continuation flags,
-// VMEM carry and DMA flush have no counterpart here: blocks are
-// independent tiles.
+// What the design does about it (the points that kept the first, per-tile
+// version of this kernel far from its bound):
+// - Occupancy and uneven work: one CTA per 16x16 quadrant, one pixel per
+//   thread, so per-thread state is C accumulators + T + the last index and
+//   3-4 CTAs fit an SM; a tile of 32 is 4 independent CTAs (4x as many,
+//   each shorter), and each quadrant stops once its own pixels have
+//   terminated. No cluster: n_touched is an integer atomic, exact in any
+//   order, and n_contrib is per pixel.
+// - Pairs that cannot contribute: at the main path's shapes only ~12 % of
+//   the pairs a per-tile walk evaluates composite; the rest lie outside
+//   the instance's 1/255 ellipse. Each batch, thread i computes row i's
+//   conservative reach box (blend_common.cuh: reach_box), and the rows
+//   whose box misses the CTA's square are dropped by an order-preserving
+//   compaction. A dropped pair is one the blend would skip, so no output
+//   changes.
+// - The gather: the next batch's rows arrive by cp.async into the other
+//   half of a double buffer while the current batch is composited.
+// - --fmad=false keeps the alpha / T chain bit-identical to the reference
+//   (and to the backward's recomputation); the channel accumulation, which
+//   no threshold reads, uses explicit fused multiply-adds.
+// - n_touched: per instance a warp __reduce_add_sync, one shared atomic per
+//   warp, one global atomic per (CTA, Gaussian).
 
 #include "blend_common.cuh"
 
 namespace blend {
 
-template <int C, int PPT>
-__global__ void __launch_bounds__(BLOCK)
+template <int C>
+__global__ void __launch_bounds__(BLOCK, 4)
 fwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
            const int* __restrict__ s_gid, const int* __restrict__ starts,
            const int* __restrict__ counts, float* __restrict__ out_feat,
            float* __restrict__ out_t, int* __restrict__ n_contrib,
            int* __restrict__ n_touched, TileGeometry tg, int stats) {
-  __shared__ float s_geom[BLOCK][6];
-  __shared__ float s_feat[BLOCK * C];
-  __shared__ int s_ids[BLOCK];
-  __shared__ int s_touch[BLOCK];
+  extern __shared__ float4 smem4[];
+  float* s_geom = reinterpret_cast<float*>(smem4);    // [2][BATCH][8]
+  float* s_feat = s_geom + 2 * BATCH * GEOM_COLS;     // [2][BATCH * C]
+  int* s_list = reinterpret_cast<int*>(s_feat + 2 * BATCH * C);  // [BATCH]
+  int* s_touch = s_list + BATCH;                        // [BATCH]
+  int* s_warp_count = s_touch + BATCH;                  // [BLOCK / 32]
 
-  const int tile_id = blockIdx.x;
-  const int start = starts[tile_id];
-  const int count = counts[tile_id];
+  const Quad quad = quad_of(tg);
+  int px, py;
+  const bool in_img = pixel_of(tg, quad, &px, &py);
+  const int start = starts[quad.tile_id];
+  const int count = counts[quad.tile_id];
   const int lane = threadIdx.x & 31;
+  const float fx = (float)px, fy = (float)py;
+  const float4 rect = make_float4((float)quad.x0, (float)(quad.x0 + tg.quad - 1),
+                                  (float)quad.y0, (float)(quad.y0 + tg.quad - 1));
+  bool live = in_img;
+  float T = 1.f;
+  int last = 0;
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
 
-  int px[PPT], py[PPT], last[PPT];
-  bool in_img[PPT], live[PPT];
-  float fx[PPT], fy[PPT], T[PPT], acc[PPT][C];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    in_img[k] = pixel_of(tg, tile_id, k, &px[k], &py[k]);
-    live[k] = in_img[k];
-    fx[k] = (float)px[k];
-    fy[k] = (float)py[k];
-    T[k] = 1.f;
-    last[k] = 0;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[k][c] = 0.f;
-  }
+  const int* ids = s_gid + start;
+  if (count > 0) load_batch<C>(geom, feat, ids, min(BATCH, count), s_geom, s_feat);
+  __pipeline_commit();
 
-  for (int b0 = 0; b0 < count; b0 += BLOCK) {
-    int alive = 0;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) alive |= live[k] ? 1 : 0;
-    // Also the barrier between the previous batch's reads and this load.
-    if (__syncthreads_count(alive) == 0) break;
-    const int n = min(BLOCK, count - b0);
-    const int i = threadIdx.x;
-    if (i < n) {
-      const int g = s_gid[start + b0 + i];
-      s_ids[i] = g;
-      const float* gp = geom + (size_t)g * GEOM_COLS;
-#pragma unroll
-      for (int q = 0; q < 6; ++q) s_geom[i][q] = gp[q];
-      const float* fp = feat + (size_t)g * C;
-#pragma unroll
-      for (int c = 0; c < C; ++c) s_feat[i * C + c] = fp[c];
-    }
-    s_touch[i] = 0;
+  int buf = 0;
+  for (int b0 = 0; b0 < count; b0 += BATCH, buf ^= 1) {
+    // Also the barrier between the previous batch's reads and the copies
+    // into the buffer it used.
+    if (__syncthreads_count(live) == 0) break;
+    const int n = min(BATCH, count - b0);
+    if (b0 + BATCH < count)
+      load_batch<C>(geom, feat, ids + b0 + BATCH, min(BATCH, count - b0 - BATCH),
+                    s_geom + (buf ^ 1) * BATCH * GEOM_COLS,
+                    s_feat + (buf ^ 1) * BATCH * C);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // this batch's group has landed
+    if ((int)threadIdx.x < n) s_touch[threadIdx.x] = 0;
     __syncthreads();
 
-    for (int j = 0; j < n; ++j) {
-      const float gx = s_geom[j][0], gy = s_geom[j][1];
-      const float ca = s_geom[j][2], cb = s_geom[j][3], cc = s_geom[j][4];
-      const float op = s_geom[j][5];
+    const float* bg = s_geom + buf * BATCH * GEOM_COLS;
+    const float* bf = s_feat + buf * BATCH * C;
+    const int m = select_rows(bg, n, rect, s_list, s_warp_count);
+#pragma unroll 2
+    for (int k = 0; k < m; ++k) {
+      const int j = s_list[k];
       int touched = 0;
+      if (live) {
+        const float4 g0 = *reinterpret_cast<const float4*>(bg + j * GEOM_COLS);
+        const float2 g1 = *reinterpret_cast<const float2*>(bg + j * GEOM_COLS + 4);
+        const float dx = g0.x - fx;
+        const float dy = g0.y - fy;
+        const float power = power_of(dx, dy, g0.z, g0.w, g1.x);
+        if (!(power > 0.f)) {  // NaN falls through, as in the reference
+          const float alpha = fminf(ALPHA_MAX, g1.y * expf(power));
+          if (!(alpha < ALPHA_MIN)) {
+            const float test_t = T * (1.f - alpha);
+            if (test_t < T_EPS) {
+              live = false;
+            } else {
+              const float w = alpha * T;
 #pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        if (!live[k]) continue;
-        const float dx = gx - fx[k];
-        const float dy = gy - fy[k];
-        const float power = power_of(dx, dy, ca, cb, cc);
-        if (power > 0.f) continue;
-        const float alpha = fminf(ALPHA_MAX, op * expf(power));
-        if (alpha < ALPHA_MIN) continue;
-        const float test_t = T[k] * (1.f - alpha);
-        if (test_t < T_EPS) {
-          live[k] = false;
-          continue;
+              for (int c = 0; c < C; ++c) acc[c] = __fmaf_rn(w, bf[j * C + c], acc[c]);
+              T = test_t;
+              last = b0 + j + 1;
+              touched = test_t > N_TOUCHED_T ? 1 : 0;
+            }
+          }
         }
-        const float w = alpha * T[k];
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[k][c] += w * s_feat[j * C + c];
-        T[k] = test_t;
-        last[k] = b0 + j + 1;
-        touched += test_t > N_TOUCHED_T ? 1 : 0;
       }
       if (stats) {
-        const int warp_total = __reduce_add_sync(0xffffffffu, touched);
+        const int warp_total = __reduce_add_sync(FULL, touched);
         if (lane == 0 && warp_total) atomicAdd(&s_touch[j], warp_total);
       }
     }
     __syncthreads();
-    if (stats && i < n && s_touch[i]) atomicAdd(&n_touched[s_ids[i]], s_touch[i]);
+    if (stats && (int)threadIdx.x < n && s_touch[threadIdx.x])
+      atomicAdd(&n_touched[ids[b0 + threadIdx.x]], s_touch[threadIdx.x]);
   }
+  __pipeline_wait_prior(0);  // no copy outlives the CTA
 
+  if (!in_img) return;
   const size_t hw = (size_t)tg.width * tg.height;
+  const size_t idx = (size_t)py * tg.width + px;
+  out_t[idx] = T;
+  n_contrib[idx] = stats ? last : 0;
 #pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    if (!in_img[k]) continue;
-    const size_t idx = (size_t)py[k] * tg.width + px[k];
-    out_t[idx] = T[k];
-    n_contrib[idx] = stats ? last[k] : 0;
-#pragma unroll
-    for (int c = 0; c < C; ++c) out_feat[c * hw + idx] = acc[k][c];
-  }
+  for (int c = 0; c < C; ++c) out_feat[c * hw + idx] = acc[c];
 }
 
 template <int C>
-static void launch_fwd(int ppt, dim3 grid, cudaStream_t s, const float* geom,
-                       const float* feat, const int* s_gid, const int* starts,
-                       const int* counts, float* out_feat, float* out_t,
-                       int* n_contrib, int* n_touched, TileGeometry tg,
-                       int stats) {
-  if (ppt == 1)
-    fwd_kernel<C, 1><<<grid, BLOCK, 0, s>>>(geom, feat, s_gid, starts, counts,
-        out_feat, out_t, n_contrib, n_touched, tg, stats);
-  else
-    fwd_kernel<C, 4><<<grid, BLOCK, 0, s>>>(geom, feat, s_gid, starts, counts,
-        out_feat, out_t, n_contrib, n_touched, tg, stats);
+constexpr size_t fwd_smem() {
+  return sizeof(float) * 2 * BATCH * (GEOM_COLS + C) +
+         sizeof(int) * (2 * BATCH + BLOCK / 32);
+}
+
+template <int C>
+static cudaError_t launch_fwd(cudaStream_t s, const float* geom,
+                              const float* feat, const int* s_gid,
+                              const int* starts, const int* counts,
+                              float* out_feat, float* out_t, int* n_contrib,
+                              int* n_touched, const TileGeometry& tg,
+                              int stats) {
+  return launch(fwd_kernel<C>, num_ctas(tg), fwd_smem<C>(), s, geom, feat,
+                s_gid, starts, counts, out_feat, out_t, n_contrib, n_touched,
+                tg, stats);
 }
 
 }  // namespace blend
 
-// Plain C entry point for ctypes. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unsupported channel count or tile).
+// Plain C entry point for ctypes. Returns the launch's error code, then
+// cudaGetLastError() (cudaErrorInvalidValue for an unsupported channel
+// count or tile).
 extern "C" int blend_fwd(const float* geom, const float* feat,
                          const int* s_gid, const int* starts,
                          const int* counts, float* out_feat, float* out_t,
@@ -158,28 +175,38 @@ extern "C" int blend_fwd(const float* geom, const float* feat,
                          int width, int height, int tile, int stats,
                          void* stream) {
   using namespace blend;
-  // One pixel per thread up to tile 16, four up to tile 32.
-  if (tile <= 0 || tile * tile > 4 * BLOCK) return (int)cudaErrorInvalidValue;
-  const int ppt = tile * tile <= BLOCK ? 1 : 4;
-  TileGeometry tg{width, height, tile, (width + tile - 1) / tile};
-  const int tiles_y = (height + tile - 1) / tile;
-  const dim3 grid(tg.tiles_x * tiles_y);
+  TileGeometry tg;
+  if (!make_geometry(width, height, tile, &tg)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
   switch (channels) {
     case 4:
-      launch_fwd<4>(ppt, grid, s, geom, feat, s_gid, starts, counts, out_feat,
-                    out_t, n_contrib, n_touched, tg, stats);
+      err = launch_fwd<4>(s, geom, feat, s_gid, starts, counts, out_feat, out_t,
+                          n_contrib, n_touched, tg, stats);
       break;
     case 7:
-      launch_fwd<7>(ppt, grid, s, geom, feat, s_gid, starts, counts, out_feat,
-                    out_t, n_contrib, n_touched, tg, stats);
+      err = launch_fwd<7>(s, geom, feat, s_gid, starts, counts, out_feat, out_t,
+                          n_contrib, n_touched, tg, stats);
       break;
     case 19:
-      launch_fwd<19>(ppt, grid, s, geom, feat, s_gid, starts, counts, out_feat,
-                     out_t, n_contrib, n_touched, tg, stats);
+      err = launch_fwd<19>(s, geom, feat, s_gid, starts, counts, out_feat, out_t,
+                           n_contrib, n_touched, tg, stats);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// CTAs of the forward kernel at `channels` resident per SM, for the
+// diagnostics of chip_smoke.py.
+extern "C" int blend_fwd_occupancy(int channels, int* blocks) {
+  using namespace blend;
+  switch (channels) {
+    case 4: return (int)occupancy(fwd_kernel<4>, fwd_smem<4>(), blocks);
+    case 7: return (int)occupancy(fwd_kernel<7>, fwd_smem<7>(), blocks);
+    case 19: return (int)occupancy(fwd_kernel<19>, fwd_smem<19>(), blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -32,7 +32,7 @@ of bg and opacity reach the kernels through final_t.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -47,14 +47,27 @@ SUPPORTED_CHANNELS = (4, 7, 19)  # F_lang 0 (tracking), 3, 15 (mapping)
 
 @dataclass
 class KernelStats:
-    """Launch counters of one kernel and of its plain version."""
+    """Launch counters of one kernel and of its plain version, in total and
+    per channel count C."""
 
     launches: int = 0
     plain_calls: int = 0
+    launches_by_channels: dict[int, int] = field(default_factory=dict)
+    plain_by_channels: dict[int, int] = field(default_factory=dict)
+
+    def count(self, channels: int, *, plain: bool) -> None:
+        by = self.plain_by_channels if plain else self.launches_by_channels
+        by[channels] = by.get(channels, 0) + 1
+        if plain:
+            self.plain_calls += 1
+        else:
+            self.launches += 1
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+        self.launches_by_channels.clear()
+        self.plain_by_channels.clear()
 
 
 FWD_STATS = KernelStats()
@@ -102,7 +115,7 @@ def _chunk_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     w = torch.where(contrib, alpha * cum_t, torch.zeros_like(alpha))
     t_next = t_prev * torch.prod(torch.where(contrib, one_minus, ones), 0)
     done_next = done | (~skip & stopped).any(0)
-    return dict(dx=dx, dy=dy, expp=expp, alpha_raw=alpha_raw,
+    return dict(dx=dx, dy=dy, expp=expp, alpha_raw=alpha_raw, skip=skip,
                 one_minus=one_minus, cum_t=cum_t, test_t=test_t,
                 contrib=contrib, w=w, t_next=t_next, done_next=done_next)
 
@@ -123,9 +136,9 @@ def _tile_walk(s_gid, starts_h, counts_h, tiles_x, tile, width, height,
 
 def blend_forward_plain(geom, feat, s_gid, starts, tile_counts, *, width: int,
                         height: int, tile: int, stats: bool = True):
-    FWD_STATS.plain_calls += 1
     device, dtype = feat.device, feat.dtype
     p, c = feat.shape
+    FWD_STATS.count(c, plain=True)
     tiles_x = (width + tile - 1) // tile
     feat_img = torch.zeros((c, height, width), dtype=dtype, device=device)
     final_t = torch.ones((height, width), dtype=dtype, device=device)
@@ -163,9 +176,9 @@ def blend_backward_plain(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
     """Gradient of the blend walking forward: the suffix sums are the saved
     per-pixel total Σ_f g_f·A_f + g_T·T_final minus the running inclusive
     prefix of w·G (no division by T)."""
-    BWD_STATS.plain_calls += 1
     device, dtype = feat.device, feat.dtype
     p, c = feat.shape
+    BWD_STATS.count(c, plain=True)
     tiles_x = (width + tile - 1) // tile
     d_geom = torch.zeros((p, 6), dtype=dtype, device=device)
     d_feat = torch.zeros((p, c), dtype=dtype, device=device)
@@ -209,15 +222,45 @@ def blend_backward_plain(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
     return d_geom, d_feat
 
 
+def blend_work(geom, feat, s_gid, starts, tile_counts, *, width: int,
+               height: int, tile: int) -> tuple[int, int]:
+    """(pairs evaluated, pairs contributing) of a render, the work of both
+    blend kernels in this data, for their bounds. A pair (instance, in-image
+    pixel) has to be evaluated when the pixel has not stopped before it and
+    its alpha reaches 1/255: the pairs that composite and each pixel's
+    stopping one. The rest lie outside the instance's 1/255 footprint, which
+    a kernel can cull per row without evaluating the pair. Counted with the
+    same chunk walk as the plain versions."""
+    tiles_x = (width + tile - 1) // tile
+    evaluated = contributing = 0
+    for px, py, chunks in _tile_walk(s_gid, starts.tolist(), tile_counts.tolist(),
+                                     tiles_x, tile, width, height, feat.device):
+        t_prev = torch.ones(px.shape[0], dtype=feat.dtype, device=feat.device)
+        done = torch.zeros(px.shape[0], dtype=torch.bool, device=feat.device)
+        for _c0, ids in chunks:
+            a = _chunk_alpha(geom[ids], px, py, t_prev, done)
+            # Live at row i unless the pixel stopped before it (cum_t[i] is
+            # test_t[i - 1]).
+            live = ~done[None, :] & ~(a["cum_t"] < C.T_EPS)
+            evaluated += int((live & ~a["skip"]).sum())
+            contributing += int(a["contrib"].sum())
+            t_prev, done = a["t_next"], a["done_next"]
+            if bool(done.all()):
+                break
+    return evaluated, contributing
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: plain version for CPU tensors, the kernel for CUDA tensors
 
 
-def _check_cuda_inputs(tensors: dict, channels: int):
+def _check_cuda_inputs(tensors: dict, channels: int, tile: int):
     if channels not in SUPPORTED_CHANNELS:
         raise ValueError(
             f"blend kernel supports {SUPPORTED_CHANNELS} feature channels, "
             f"got {channels}")
+    if not (0 < tile <= 16 or tile == 32):  # one CTA per tile, or 2x2 quadrants
+        raise ValueError(f"blend kernel supports tiles of 1-16 and 32, got {tile}")
     device = None
     for name, (t, dtype) in tensors.items():
         if not t.is_cuda:
@@ -244,7 +287,7 @@ def blend_forward(geom, feat, s_gid, starts, tile_counts, *, width: int,
     _check_cuda_inputs(dict(
         geom=(geom, torch.float32), feat=(feat, torch.float32),
         s_gid=(s_gid, torch.int32), starts=(starts, torch.int32),
-        tile_counts=(tile_counts, torch.int32)), c)
+        tile_counts=(tile_counts, torch.int32)), c, tile)
     if geom.shape != (p, GEOM_COLS):
         raise ValueError(f"geom must be ({p}, {GEOM_COLS}), got {tuple(geom.shape)}")
     dev = feat.device
@@ -256,7 +299,7 @@ def blend_forward(geom, feat, s_gid, starts, tile_counts, *, width: int,
         geom, feat, s_gid, starts, tile_counts, feat_img, final_t, n_contrib,
         n_touched, channels=c, width=width, height=height, tile=tile,
         stats=stats)
-    FWD_STATS.launches += 1
+    FWD_STATS.count(c, plain=False)
     return feat_img, final_t, n_contrib, n_touched
 
 
@@ -274,12 +317,12 @@ def blend_backward(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
         geom=(geom, f32), feat=(feat, f32), s_gid=(s_gid, torch.int32),
         starts=(starts, torch.int32), tile_counts=(tile_counts, torch.int32),
         g_feat=(g_feat, f32), g_t=(g_t, f32), feat_img=(feat_img, f32),
-        final_t=(final_t, f32)), c)
+        final_t=(final_t, f32)), c, tile)
     d_table = torch.zeros((p, 6 + c), dtype=f32, device=feat.device)
     kernels.launch_backward(
         geom, feat, s_gid, starts, tile_counts, g_feat, g_t, feat_img,
         final_t, d_table, channels=c, width=width, height=height, tile=tile)
-    BWD_STATS.launches += 1
+    BWD_STATS.count(c, plain=False)
     return d_table[:, :6], d_table[:, 6:]
 
 
