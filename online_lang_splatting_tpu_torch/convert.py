@@ -228,3 +228,85 @@ def cameras_from_numpy(frames: dict, intrinsics: dict, device="cpu") -> dict:
         )
         cams[uid] = cam
     return cams
+
+
+def lpips_from_numpy(params: dict, device="cpu") -> dict:
+    """The JAX package's LPIPS parameter tree ({"convs": [(weight, bias)],
+    "lins": [weight]}, OIHW, as numpy) -> the port's (eval/lpips.py)."""
+    from .eval.lpips import _tree
+
+    return _tree(params["convs"], params["lins"], device)
+
+
+def online_ae_to_numpy(state_dict: dict) -> dict:
+    """models/autoencoder EncoderDecoderOnline state_dict -> the JAX
+    package's params tree (the inverse of `online_ae_from_numpy`)."""
+    out = {}
+    for name, key in (("enc1", "encoder.0"), ("enc2", "encoder.2"),
+                      ("dec1", "decoder.0"), ("dec2", "decoder.2")):
+        out[name] = {"kernel": state_dict[f"{key}.weight"].detach().cpu().numpy().T.copy(),
+                     "bias": state_dict[f"{key}.bias"].detach().cpu().numpy()}
+    return out
+
+
+def _nested(flat, prefix: str) -> dict:
+    """'prefix/a/b' keys of an npz -> {a: {b: array}}."""
+    tree: dict = {}
+    for key in flat:
+        if key.startswith(prefix + "/"):
+            node = tree
+            parts = key[len(prefix) + 1:].split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.asarray(flat[key])
+    return tree
+
+
+def snapshot_from_numpy(flat, device="cpu") -> dict:
+    """A slam/checkpoint.py snapshot of either package ({key: array}, the
+    npz's contents) -> the port's state:
+
+    params / opt / aux (tensors on `device`), kf_opt (the keyframe pose
+    Adam, or None), cams {kf id: {r, t, exposure[, lang, coco]}} (numpy),
+    occ {kf id: visibility}, traj {frame: r (9) + t (3)}, the counters
+    (iteration_count, frame_idx, cap, kf_indices, fe_kf_indices, window,
+    median_depth), online_ae (a models/autoencoder state_dict, or None)
+    and, from a snapshot the port wrote, torch_rng (the backend
+    generator's state) and torch_online_ae_opt (the online codec's Adam).
+    The JAX package's `rng`, a JAX PRNG key, has no use here."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=device)
+
+    def named(tree_type, node):
+        return tree_type(*(t(node[f]) for f in tree_type._fields))
+
+    params, opt, aux = (_nested(flat, k) for k in ("params", "opt", "aux"))
+    state = dict(
+        params=named(G.GaussianParams, params),
+        opt=G.AdamState(mu=named(G.GaussianParams, opt["mu"]),
+                        nu=named(G.GaussianParams, opt["nu"]), count=t(opt["count"])),
+        aux=named(G.GaussianAux, aux),
+        kf_opt=None,
+        cams={int(k): v for k, v in _nested(flat, "cam").items()},
+        occ={int(k): v for k, v in _nested(flat, "occ").items()},
+        traj={int(k): v for k, v in _nested(flat, "traj").items()},
+        online_ae=None, torch_rng=None, torch_online_ae_opt=None,
+    )
+    kf = _nested(flat, "kf_opt")
+    if kf:
+        state["kf_opt"] = (tuple(t(kf["0"][str(i)]) for i in range(4)),
+                           tuple(t(kf["1"][str(i)]) for i in range(4)), t(kf["2"]))
+    for key in ("iteration_count", "frame_idx", "cap"):
+        state[key] = int(flat[key])
+    for key in ("kf_indices", "fe_kf_indices", "window"):
+        state[key] = [int(i) for i in np.asarray(flat[key])]
+    state["median_depth"] = float(flat["median_depth"])
+    ae = _nested(flat, "online_ae")
+    if ae:
+        state["online_ae"] = online_ae_from_numpy(ae)
+    if "torch_rng" in flat:
+        state["torch_rng"] = torch.as_tensor(np.asarray(flat["torch_rng"]))
+    ae_opt = _nested(flat, "torch_online_ae_opt")
+    if ae_opt:
+        state["torch_online_ae_opt"] = ae_opt
+    return state

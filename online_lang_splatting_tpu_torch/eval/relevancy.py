@@ -41,7 +41,7 @@ class CLIPRelevancy:
     """
 
     def __init__(self, text_tower=None, tokenizer=None, *, pos_embeds=None,
-                 neg_embeds=None, embed_table=None, device="cpu"):
+                 neg_embeds=None, embed_table=None, device="cuda"):
         self.device = torch.device(device)
         self._text_tower = text_tower
         self._tokenizer = tokenizer

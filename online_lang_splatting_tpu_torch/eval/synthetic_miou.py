@@ -52,7 +52,7 @@ class SyntheticLangExtractor:
 
     def __init__(self, dataset, *, lang_hw=(192, 192), clip_dim: int = 768,
                  stage: int = 1, seed: int = 0, train_steps: int = 300,
-                 batch: int = 256, noise: float = 0.05, device="cpu"):
+                 batch: int = 256, noise: float = 0.05, device="cuda"):
         from ..models.autoencoder import (ONE_STAGE_DEC, ONE_STAGE_ENC,
                                           TWO_STAGE_DEC, TWO_STAGE_ENC,
                                           AutoencoderMLP, make_offline_optimizer,

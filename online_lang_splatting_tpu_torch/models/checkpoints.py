@@ -67,7 +67,7 @@ class OnlineAETrainer:
     in mapping (the backend calls `train_rows` with the visited keyframes
     in order)."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.model = EncoderDecoderOnline(generator=make_generator(0)).to(device)
         self.optimizer = make_online_optimizer(self.model)
         self.step_count = 0

@@ -34,7 +34,7 @@ class LangFeatureExtractor:
                  use_hr: bool = True, clip_resolution=None,
                  depths: Sequence[int] = DEPTHS, dims: Sequence[int] = DIMS,
                  embed_dim: int = EMBED_DIM, clip_dim: int = 768,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device="cuda"):
         self.device = torch.device(device)
         # SED resizes every frame to 768x768 before the dense encode;
         # overridable for small-scale tests.

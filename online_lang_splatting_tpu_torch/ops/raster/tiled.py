@@ -32,6 +32,7 @@ of bg and opacity reach the kernels through final_t.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 
 import torch
@@ -48,26 +49,31 @@ SUPPORTED_CHANNELS = (4, 7, 19)  # F_lang 0 (tracking), 3, 15 (mapping)
 @dataclass
 class KernelStats:
     """Launch counters of one kernel and of its plain version, in total and
-    per channel count C."""
+    per channel count C. The threaded SLAM mode renders from two host
+    threads, so every update holds the lock."""
 
     launches: int = 0
     plain_calls: int = 0
     launches_by_channels: dict[int, int] = field(default_factory=dict)
     plain_by_channels: dict[int, int] = field(default_factory=dict)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
+                                  compare=False)
 
     def count(self, channels: int, *, plain: bool) -> None:
-        by = self.plain_by_channels if plain else self.launches_by_channels
-        by[channels] = by.get(channels, 0) + 1
-        if plain:
-            self.plain_calls += 1
-        else:
-            self.launches += 1
+        with self._lock:
+            by = self.plain_by_channels if plain else self.launches_by_channels
+            by[channels] = by.get(channels, 0) + 1
+            if plain:
+                self.plain_calls += 1
+            else:
+                self.launches += 1
 
     def reset(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
-        self.launches_by_channels.clear()
-        self.plain_by_channels.clear()
+        with self._lock:
+            self.launches = 0
+            self.plain_calls = 0
+            self.launches_by_channels.clear()
+            self.plain_by_channels.clear()
 
 
 FWD_STATS = KernelStats()

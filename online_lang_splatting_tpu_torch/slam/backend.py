@@ -604,3 +604,13 @@ class BackEnd:
         self.map([kf_idx], iters=self.init_itr_num, lang_run=self.lang_train,
                  init_mode=True)
         self.initialized = True
+
+    def color_refinement(self, iterations: int = 26000):
+        """Final L1 + SSIM refinement over random keyframes
+        (slam/refinement.py); the map's Adam state restarts from zero."""
+        from . import refinement
+
+        self.params, self.opt, _ = refinement.color_refine(
+            self.params, self.aux, self.viewpoints, self.proj, self.settings,
+            iterations=iterations, lambda_dssim=self.op.get("lambda_dssim", 0.2),
+            frame_stack=self.frame_stack)

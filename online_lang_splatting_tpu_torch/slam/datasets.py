@@ -1,16 +1,33 @@
 """RGB-D datasets (port of slam/datasets.py), numpy only.
 
-Only the analytic `SyntheticDataset` is ported so far: it feeds the
-replica-scale main path and needs no data on disk. The disk-backed types
-of the JAX package (replica, replicav2, tum, euroc, realsense) come with a
-later slice of the port.
+The parsers match the JAX package's: `ReplicaV2Dataset` (vMAP layout
+rgb/rgb_*.png, depth/depth_*.png, traj_w_c.txt used verbatim as W2C),
+`ReplicaDataset` (results/frame*.jpg, traj.txt C2W, inverted),
+`TUMDataset` (timestamp association, 32 FPS subsampling), `EuRoCDataset`
+(rectified stereo pair, SGBM depth), `RealsenseDataset` (live capture),
+and the analytic `SyntheticDataset`, which needs no data on disk. Frames
+decode through the port's own decoder (`native.decoder()`, chosen once per
+process); cv2 and pyrealsense2 are imported only by the layouts that need
+them.
 """
 
 from __future__ import annotations
 
+import glob
+import re
+from pathlib import Path
+
 import numpy as np
 
+from .. import native
 from ..ops import graphics
+
+
+def _natsorted(paths):
+    def key(s):
+        return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", s)]
+
+    return sorted(paths, key=key)
 
 
 class BaseDataset:
@@ -27,11 +44,140 @@ class BaseDataset:
         self.depth_scale = calib.get("depth_scale", 1.0)
         self.fovx = graphics.focal_to_fov(self.fx, self.width)
         self.fovy = graphics.focal_to_fov(self.fy, self.height)
+        self.distorted = calib.get("distorted", False)
+        self.dist_coeffs = np.array(
+            [calib.get(k, 0.0) for k in ("k1", "k2", "p1", "p2", "k3")])
+        self._undistort_maps = None
+        if self.distorted:
+            # Built once; every frame is remapped through them.
+            import cv2
+
+            k = np.array([[self.fx, 0, self.cx], [0, self.fy, self.cy], [0, 0, 1]])
+            self._undistort_maps = cv2.initUndistortRectifyMap(
+                k, self.dist_coeffs, np.eye(3), k, (self.width, self.height),
+                cv2.CV_32FC1)
         self.color_paths: list[str] = []
+        self.depth_paths: list[str] = []
         self.poses: list[np.ndarray] = []
+        self.load_labels = bool(config.get("language", {}).get("labels_from_file", False))
+        self.feat_map_paths: list[str] = []
+        if self.load_labels:
+            label_path = config["language"]["lang_label_path"]
+            self.feat_map_paths = sorted(glob.glob(f"{label_path}/*_ld.npy"))
 
     def __len__(self):
         return len(self.color_paths)
+
+    def __getitem__(self, idx):
+        dec = native.decoder()
+        color = dec.rgb(self.color_paths[idx], self.height, self.width)
+        if self._undistort_maps is not None:
+            import cv2
+
+            hwc = cv2.remap(color.transpose(1, 2, 0), self._undistort_maps[0],
+                            self._undistort_maps[1], cv2.INTER_LINEAR)
+            color = hwc.transpose(2, 0, 1)
+        depth = dec.depth(self.depth_paths[idx], self.height, self.width,
+                          float(self.depth_scale))
+        gt_lang = lang_mask = None
+        if self.load_labels and idx < len(self.feat_map_paths):
+            gt_lang = np.load(self.feat_map_paths[idx])
+            lang_mask = gt_lang
+        color = np.clip(color, 0.0, 1.0)
+        return color, depth, self.poses[idx].astype(np.float32), gt_lang, lang_mask
+
+
+class ReplicaV2Dataset(BaseDataset):
+    """vMAP-layout Replica (rgb/rgb_*.png, depth/depth_*.png, traj_w_c.txt);
+    the poses are W2C as written, as the reference parser reads them."""
+
+    def __init__(self, config: dict):
+        super().__init__(config)
+        root = config["Dataset"]["dataset_path"]
+        self.color_paths = _natsorted(glob.glob(f"{root}/rgb/rgb_*.png"))
+        self.depth_paths = _natsorted(glob.glob(f"{root}/depth/depth_*.png"))
+        with open(f"{root}/traj_w_c.txt") as f:
+            lines = f.readlines()
+        self.poses = [np.array(list(map(float, lines[i].split()))).reshape(4, 4)
+                      for i in range(len(self.color_paths))]
+
+
+class ReplicaDataset(BaseDataset):
+    """Original MonoGS Replica layout (results/frame*.jpg, traj.txt C2W)."""
+
+    def __init__(self, config: dict):
+        super().__init__(config)
+        root = config["Dataset"]["dataset_path"]
+        self.color_paths = _natsorted(glob.glob(f"{root}/results/frame*.jpg"))
+        self.depth_paths = _natsorted(glob.glob(f"{root}/results/depth*.png"))
+        with open(f"{root}/traj.txt") as f:
+            lines = f.readlines()
+        self.poses = [np.linalg.inv(np.array(list(map(float, ln.split()))).reshape(4, 4))
+                      for ln in lines[: len(self.color_paths)]]
+
+
+class TUMDataset(BaseDataset):
+    """TUM RGB-D: rgb / depth / ground truth associated by timestamp, then
+    subsampled to at most `frame_rate` frames per second."""
+
+    def __init__(self, config: dict, frame_rate: float = 32.0):
+        super().__init__(config)
+        root = Path(config["Dataset"]["dataset_path"])
+        rgb = self._read_list(root / "rgb.txt")
+        depth = self._read_list(root / "depth.txt")
+        gt_file = root / "groundtruth.txt"
+        if not gt_file.exists():
+            gt_file = root / "pose.txt"
+        gt = self._read_list(gt_file)
+        assoc = self._associate(rgb[:, 0], depth[:, 0], gt[:, 0])
+        # Keep a frame only when more than 1/frame_rate s has passed since
+        # the last kept one.
+        t_rgb = rgb[:, 0].astype(np.float64)
+        indices = [0]
+        for a in range(1, len(assoc)):
+            if t_rgb[assoc[a][0]] - t_rgb[assoc[indices[-1]][0]] > 1.0 / frame_rate:
+                indices.append(a)
+        for a in indices:
+            i, j, k = assoc[a]
+            self.color_paths.append(str(root / rgb[i, 1]))
+            self.depth_paths.append(str(root / depth[j, 1]))
+            q = gt[k, 4:8].astype(np.float64)  # qx qy qz qw
+            c2w = np.eye(4)
+            c2w[:3, :3] = _quat_to_rot(q)
+            c2w[:3, 3] = gt[k, 1:4].astype(np.float64)
+            self.poses.append(np.linalg.inv(c2w))
+
+    @staticmethod
+    def _read_list(path):
+        rows = []
+        with open(path) as f:
+            for line in f:
+                if line.startswith("#") or not line.strip():
+                    continue
+                rows.append(line.split())
+        return np.array(rows, dtype=object)
+
+    @staticmethod
+    def _associate(t_rgb, t_depth, t_gt, max_dt=0.08):
+        t_rgb = t_rgb.astype(np.float64)
+        t_depth = t_depth.astype(np.float64)
+        t_gt = t_gt.astype(np.float64)
+        out = []
+        for i, t in enumerate(t_rgb):
+            j = int(np.argmin(np.abs(t_depth - t)))
+            k = int(np.argmin(np.abs(t_gt - t)))
+            if abs(t_depth[j] - t) < max_dt and abs(t_gt[k] - t) < max_dt:
+                out.append((i, j, k))
+        return out
+
+
+def _quat_to_rot(q):
+    x, y, z, w = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
 
 
 class SyntheticDataset(BaseDataset):
@@ -120,12 +266,125 @@ class SyntheticDataset(BaseDataset):
         return color, depth, w2c.astype(np.float32), None, None
 
 
+class EuRoCDataset(BaseDataset):
+    """EuRoC MAV stereo: SGBM depth from the rectified cam0 / cam1 pair.
+
+    With `distorted` set and cam0 / cam1 calibration present (the
+    reference configs' layout: cam{0,1}: {raw: {fx..k3}, opt: {fx..cy},
+    R: {data: 9}}), both images are remapped through
+    cv2.initUndistortRectifyMap before SGBM."""
+
+    def __init__(self, config: dict):
+        super().__init__(config)
+        root = Path(config["Dataset"]["dataset_path"])
+        start = config["Dataset"].get("start_idx", 0)
+        calib = config["Dataset"]["Calibration"]
+        self._rect_maps = None
+        if calib.get("distorted", False) and "cam0" in calib:
+            import cv2
+
+            def cam_maps(cam):
+                raw, opt = cam["raw"], cam["opt"]
+                k_raw = np.array([[raw["fx"], 0.0, raw["cx"]], [0.0, raw["fy"], raw["cy"]],
+                                  [0.0, 0.0, 1.0]])
+                dist = np.array([raw.get(k, 0.0) for k in ("k1", "k2", "p1", "p2", "k3")])
+                rmat = np.array(cam["R"]["data"]).reshape(3, 3)
+                k_new = np.array([[opt["fx"], 0.0, opt["cx"]], [0.0, opt["fy"], opt["cy"]],
+                                  [0.0, 0.0, 1.0]])
+                return cv2.initUndistortRectifyMap(k_raw, dist, rmat, k_new,
+                                                   (self.width, self.height), cv2.CV_32FC1)
+
+            self._rect_maps = (cam_maps(calib["cam0"]), cam_maps(calib["cam1"]))
+        self.color_paths = _natsorted(
+            [str(p) for p in (root / "mav0/cam0/data").glob("*.png")])[start:]
+        self.color_paths_r = _natsorted(
+            [str(p) for p in (root / "mav0/cam1/data").glob("*.png")])[start:]
+        # Ground truth from the state-estimate CSV, matched by timestamp.
+        rows = np.genfromtxt(root / "mav0/state_groundtruth_estimate0/data.csv",
+                             delimiter=",", skip_header=1)
+        t_gt = rows[:, 0]
+        stamps = np.array([float(Path(p).stem) for p in self.color_paths])
+        self.poses = []
+        keep = []
+        for i, t in enumerate(stamps):
+            j = int(np.argmin(np.abs(t_gt - t)))
+            if abs(t_gt[j] - t) > 0.05e9:
+                continue
+            q = rows[j, 4:8]  # qw qx qy qz
+            c2w = np.eye(4)
+            c2w[:3, :3] = _quat_to_rot([q[1], q[2], q[3], q[0]])
+            c2w[:3, 3] = rows[j, 1:4]
+            self.poses.append(np.linalg.inv(c2w))
+            keep.append(i)
+        self.color_paths = [self.color_paths[i] for i in keep]
+        self.color_paths_r = [self.color_paths_r[i] for i in keep]
+
+    def __getitem__(self, idx):
+        import cv2
+
+        left = cv2.imread(self.color_paths[idx], cv2.IMREAD_GRAYSCALE)
+        right = cv2.imread(self.color_paths_r[idx], cv2.IMREAD_GRAYSCALE)
+        if self._rect_maps is not None:
+            (m0x, m0y), (m1x, m1y) = self._rect_maps
+            left = cv2.remap(left, m0x, m0y, cv2.INTER_LINEAR)
+            right = cv2.remap(right, m1x, m1y, cv2.INTER_LINEAR)
+        # The reference StereoDataset's SGBM settings.
+        sgbm = cv2.StereoSGBM_create(minDisparity=0, numDisparities=64, blockSize=20)
+        sgbm.setUniquenessRatio(40)
+        disp = sgbm.compute(left, right).astype(np.float32) / 16.0
+        disp[disp == 0] = 1e10
+        # ORB-SLAM2's EuRoC baseline * fx.
+        baseline_fx = self.config["Dataset"].get("baseline_fx", 47.90639384423901)
+        depth = baseline_fx / disp
+        depth[depth < 0] = 0.0
+        color = np.repeat(left[None].astype(np.float32) / 255.0, 3, axis=0)
+        return (np.clip(color, 0, 1), depth.astype(np.float32),
+                self.poses[idx].astype(np.float32), None, None)
+
+
+class RealsenseDataset(BaseDataset):
+    """Live RealSense RGB-D capture (needs pyrealsense2); frames stream with
+    identity poses, which SLAM estimates."""
+
+    def __init__(self, config: dict):
+        super().__init__(config)
+        try:
+            import pyrealsense2 as rs
+        except ImportError as e:
+            raise ImportError(
+                "RealsenseDataset requires pyrealsense2 (live capture only)") from e
+        self.rs = rs
+        self.pipeline = rs.pipeline()
+        cfg = rs.config()
+        cfg.enable_stream(rs.stream.depth, 640, 480, rs.format.z16, 30)
+        cfg.enable_stream(rs.stream.color, 640, 480, rs.format.rgb8, 30)
+        self.profile = self.pipeline.start(cfg)
+        self.align = rs.align(rs.stream.color)
+        self.n = config["Dataset"].get("num_frames", 10_000)
+        self.color_paths = ["<live>"] * self.n
+        self.poses = [np.eye(4, dtype=np.float32)] * self.n
+
+    def __getitem__(self, idx):
+        frames = self.align.process(self.pipeline.wait_for_frames())
+        color = np.asanyarray(frames.get_color_frame().get_data())
+        depth = np.asanyarray(frames.get_depth_frame().get_data())
+        if self._undistort_maps is not None:
+            import cv2
+
+            color = cv2.remap(color, self._undistort_maps[0], self._undistort_maps[1],
+                              cv2.INTER_LINEAR)
+        color = np.transpose(color.astype(np.float32) / 255.0, (2, 0, 1))
+        depth = depth.astype(np.float32) / self.depth_scale
+        return np.clip(color, 0, 1), depth, np.eye(4, dtype=np.float32), None, None
+
+
+_TYPES = {"replicav2": ReplicaV2Dataset, "replica": ReplicaDataset, "tum": TUMDataset,
+          "euroc": EuRoCDataset, "realsense": RealsenseDataset,
+          "synthetic": SyntheticDataset}
+
+
 def load_dataset(config: dict) -> BaseDataset:
     kind = config["Dataset"]["type"]
-    if kind == "synthetic":
-        return SyntheticDataset(config)
-    if kind in ("replicav2", "replica", "tum", "euroc", "realsense"):
-        raise NotImplementedError(
-            f"dataset type {kind!r} is not ported yet; it comes with the "
-            "PyTorch port's dataset slice (ROADMAP queue A, item 8)")
-    raise ValueError(f"Unknown dataset type: {kind}")
+    if kind not in _TYPES:
+        raise ValueError(f"Unknown dataset type: {kind}")
+    return _TYPES[kind](config)

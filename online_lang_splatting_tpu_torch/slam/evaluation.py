@@ -1,11 +1,13 @@
 """Trajectory and rendering evaluation (port of slam/evaluation.py).
 
 * ATE RMSE via Umeyama similarity alignment (numpy).
-* PSNR / SSIM and an LPIPS substitute on every `every`-th non-keyframe
-  frame, rendered on the run's device; the rendered language maps are
-  saved as lang/{idx}.npy for the LERF-protocol eval. No AlexNet weights
-  exist, so LPIPS is the documented 1 - MS-SSIM substitute and the metrics
-  say so ("lpips_metric": "msssim_proxy").
+* PSNR / SSIM / LPIPS on every `every`-th non-keyframe frame, rendered on
+  the run's device; the rendered language maps are saved as lang/{idx}.npy
+  for the LERF-protocol eval. LPIPS is the AlexNet metric (eval/lpips.py)
+  when converted weights exist (config `Results.lpips_weights` or the
+  environment's `OLS_LPIPS_WEIGHTS`, the npz of tools/convert_weights.py
+  --lpips); otherwise the documented substitute 1 - MS-SSIM, and the
+  metrics say which ("lpips_metric": "lpips_alex" | "msssim_proxy").
 
 Each render sizes its own buffers, so the evaluation never truncates a
 render to an earlier instance count.
@@ -14,6 +16,7 @@ render to an earlier instance count.
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -79,16 +82,30 @@ def eval_ate(cameras: dict, kf_indices, save_dir=None, iterations=0,
     return rmse
 
 
+def make_lpips(config: dict, device):
+    """(fn(img, ref) -> float, name): LPIPS on converted AlexNet weights if
+    they exist, else the 1 - MS-SSIM substitute."""
+    path = (config.get("Results", {}) or {}).get("lpips_weights") or os.environ.get(
+        "OLS_LPIPS_WEIGHTS")
+    if path and os.path.exists(path):
+        from ..eval import lpips as lpips_mod
+
+        params = lpips_mod.load_params(path, device)
+        return (lambda a, b: float(lpips_mod.lpips(params, a, b))), "lpips_alex"
+    return (lambda a, b: 1.0 - float(losses.ms_ssim(a, b))), "msssim_proxy"
+
+
 @torch.no_grad()
 def eval_rendering(slam, save_dir=None, tag="before_opt", every=5) -> dict:
-    """PSNR / SSIM / LPIPS substitute (+ saved language maps) on every
-    `every`-th non-keyframe frame that was tracked."""
+    """PSNR / SSIM / LPIPS (+ saved language maps) on every `every`-th
+    non-keyframe frame that was tracked."""
     from .camera import Camera
     from .renderer import activate, render
 
     fe, be = slam.frontend, slam.backend
     inputs = activate(be.params, be.aux.active)
     kf_set = set(fe.kf_indices)
+    lpips_fn, lpips_name = make_lpips(slam.config, slam.device)
     psnrs, ssims, lpipss = [], [], []
     lang_dir = None
     if save_dir is not None:
@@ -106,14 +123,14 @@ def eval_rendering(slam, save_dir=None, tag="before_opt", every=5) -> dict:
         img = torch.clamp(out.color, 0.0, 1.0)
         psnrs.append(float(losses.psnr(img, image)))
         ssims.append(float(losses.ssim(img, image)))
-        lpipss.append(1.0 - float(losses.ms_ssim(img, image)))
+        lpipss.append(lpips_fn(img, image))
         if lang_dir is not None and out.language.shape[0] > 0:
             np.save(lang_dir / f"{idx:05d}.npy", out.language.cpu().numpy())
     metrics = {
         "mean_psnr": float(np.mean(psnrs)) if psnrs else float("nan"),
         "mean_ssim": float(np.mean(ssims)) if ssims else float("nan"),
         "mean_lpips": float(np.mean(lpipss)) if lpipss else float("nan"),
-        "lpips_metric": "msssim_proxy",
+        "lpips_metric": lpips_name,
         "tag": tag,
     }
     if save_dir is not None:

@@ -43,7 +43,7 @@ def _unit(rng, n_rows, dim):
 
 def _relevancies(rng, n_pos=5, dim=64):
     pos, neg = _unit(rng, n_pos, dim), _unit(rng, 4, dim)
-    return (relevancy.CLIPRelevancy(pos_embeds=pos, neg_embeds=neg),
+    return (relevancy.CLIPRelevancy(pos_embeds=pos, neg_embeds=neg, device="cpu"),
             jrel.CLIPRelevancy(pos_embeds=pos, neg_embeds=neg))
 
 
@@ -64,7 +64,7 @@ def test_semantic_map_matches_jax(with_negatives):
     rng = np.random.default_rng(1)
     labels = ["wall", "floor", "rug"]
     table = {k: v for k, v in zip(labels + list(relevancy.NEGATIVES), _unit(rng, 7, 32))}
-    rel = relevancy.CLIPRelevancy(embed_table=table)
+    rel = relevancy.CLIPRelevancy(embed_table=table, device="cpu")
     jr = jrel.CLIPRelevancy(embed_table=table)
     rel.set_semantics(labels)
     jr.set_semantics(labels)
@@ -213,7 +213,7 @@ def test_evaluate_scene_matches_jax(scene, eval_size, monkeypatch):
     ext, online = scene["dec"].parts("torch")
     jext, jonline = scene["dec"].parts("jax")
     args = (str(scene["lang_dir"]), str(scene["ann_path"]))
-    got = lerf_eval.evaluate_scene(*args, ext, relevancy.CLIPRelevancy(embed_table=scene["table"]),
+    got = lerf_eval.evaluate_scene(*args, ext, relevancy.CLIPRelevancy(embed_table=scene["table"], device="cpu"),
                                    online_ae=online, eval_size=eval_size)
     ref = jlerf.evaluate_scene(*args, jext, jrel.CLIPRelevancy(embed_table=scene["table"]),
                                online_ae=jonline, eval_size=eval_size)
@@ -231,7 +231,7 @@ def test_evaluate_scene_multilevel_matches_jax(scene):
     dirs = [str(scene["lang_dir"])] * 2
     got = lerf_eval.evaluate_scene_multilevel(
         dirs, str(scene["ann_path"]), lambda z: ext.decode_codes(online.decode(z)),
-        relevancy.CLIPRelevancy(embed_table=scene["table"]), eval_size=(64, 96), hwc=False)
+        relevancy.CLIPRelevancy(embed_table=scene["table"], device="cpu"), eval_size=(64, 96), hwc=False)
     ref = jlerf.evaluate_scene_multilevel(
         dirs, str(scene["ann_path"]), lambda z: jext.decode_codes(jonline.decode(z)),
         jrel.CLIPRelevancy(embed_table=scene["table"]), eval_size=(64, 96), hwc=False)
@@ -254,7 +254,7 @@ def test_activate_stream_matches_jax(scene):
         assert_normalized(clip, _JAX_DECODE_LANG_MAP(code_map, jext, jonline), 1e-5, "decode")
         levels.append(clip)
     sem = np.stack(levels)
-    rel = relevancy.CLIPRelevancy(embed_table=scene["table"])
+    rel = relevancy.CLIPRelevancy(embed_table=scene["table"], device="cpu")
     jr = jrel.CLIPRelevancy(embed_table=scene["table"])
     rel.set_positives(list(ann))
     jr.set_positives(list(ann))

@@ -243,7 +243,7 @@ def test_encode_frame_matches_jax_chain(use_hr):
     ex = LangFeatureExtractor(states["visual"], states.get("hr"), states["ae"],
                               encoder_dims=enc, decoder_dims=dec, use_hr=use_hr,
                               clip_resolution=res, depths=DEPTHS, dims=DIMS,
-                              embed_dim=embed)
+                              embed_dim=embed, device="cpu")
     got = ex.encode_frame(rgb)
     assert got.shape == ((16, 16, 32) if use_hr else (2, 2, 32))
     assert_normalized(got, ref, 1e-4, "encode_frame")
