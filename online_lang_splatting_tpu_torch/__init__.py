@@ -22,3 +22,14 @@ def pin_f32_matmul() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def entry_device(name: str = "cuda") -> torch.device:
+    """The device an entry point runs on, after `pin_f32_matmul`. A CUDA
+    device that is not there raises: no entry point falls back to the CPU
+    unless asked for it."""
+    pin_f32_matmul()
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name} requested but CUDA is not available")
+    return device

@@ -5,7 +5,9 @@ numpy by the caller (the port never imports JAX), so both packages can
 start a tracking run or a mapping iteration from the same map, and the
 port's language models load the flax parameter trees that
 tools/convert_weights.py writes (`language_from_numpy`, the inverse of
-that tool's layout changes).
+that tool's layout changes). The `*_to_numpy` functions go the other way,
+from the port's state dicts to those trees, so a weights directory can be
+written from the port's own (seeded) models.
 """
 
 from __future__ import annotations
@@ -200,6 +202,142 @@ def language_from_numpy(visual=None, hr=None, ae=None, online_ae=None,
                online_ae=online_ae_from_numpy, text=text_from_numpy)
     given = dict(visual=visual, hr=hr, ae=ae, online_ae=online_ae, text=text)
     return {k: fns[k](v) for k, v in given.items() if v is not None}
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _dense_np(sd: dict, prefix: str) -> dict:
+    out = {"kernel": _np(sd[f"{prefix}.weight"]).T.copy()}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _np(sd[f"{prefix}.bias"])
+    return out
+
+
+def _conv_np(sd: dict, prefix: str) -> dict:
+    return {"kernel": np.transpose(_np(sd[f"{prefix}.weight"]), (2, 3, 1, 0)).copy(),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _norm_np(sd: dict, prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _stats_np(sd: dict, prefix: str) -> dict:
+    return {"mean": _np(sd[f"{prefix}.running_mean"]), "var": _np(sd[f"{prefix}.running_var"])}
+
+
+def visual_to_numpy(sd: dict) -> dict:
+    """The inverse of `visual_from_numpy` (blocks stacked on a depth axis)."""
+    p = {"stem_conv": _conv_np(sd, "trunk.stem.0"), "stem_norm": _norm_np(sd, "trunk.stem.1"),
+         "head_norm": _norm_np(sd, "trunk.head.norm"),
+         "head_fc1": _dense_np(sd, "head.mlp.fc1"), "head_fc2": _dense_np(sd, "head.mlp.fc2")}
+    s = 0
+    while f"trunk.stages.{s}.blocks.0.gamma" in sd:
+        pre, stage = f"trunk.stages.{s}", {}
+        if f"{pre}.downsample.0.weight" in sd:
+            stage["ds_norm"] = _norm_np(sd, f"{pre}.downsample.0")
+            stage["ds_conv"] = _conv_np(sd, f"{pre}.downsample.1")
+        blocks = []
+        while f"{pre}.blocks.{len(blocks)}.gamma" in sd:
+            bp = f"{pre}.blocks.{len(blocks)}"
+            blocks.append({"dwconv": _conv_np(sd, f"{bp}.conv_dw"), "norm": _norm_np(sd, f"{bp}.norm"),
+                           "mlp_fc1": _dense_np(sd, f"{bp}.mlp.fc1"),
+                           "mlp_fc2": _dense_np(sd, f"{bp}.mlp.fc2"),
+                           "gamma": _np(sd[f"{bp}.gamma"])})
+
+        def stack(nodes):
+            if isinstance(nodes[0], dict):
+                return {k: stack([nd[k] for nd in nodes]) for k in nodes[0]}
+            return np.stack(nodes)
+
+        stage["blocks"] = {"block": stack(blocks)}
+        p[f"stage{s}"] = stage
+        s += 1
+    return p
+
+
+def hr_to_numpy(sd: dict) -> dict:
+    """The inverse of `hr_from_numpy`: {params, batch_stats}."""
+    params, stats = {}, {}
+
+    def conv_bn(prefix):
+        return ({"conv": _conv_np(sd, f"{prefix}.0"), "bn": _norm_np(sd, f"{prefix}.1")},
+                {"bn": _stats_np(sd, f"{prefix}.1")})
+
+    params["initial"], stats["initial"] = conv_bn("initial_conv")
+    for i in (1, 2, 3):
+        params[f"up{i}"], stats[f"up{i}"] = conv_bn(f"upsample{i}")
+    for i in (1, 2):
+        pre, fp, fs = f"attention_fusion{i}", {}, {}
+        if f"{pre}.low_res_align.weight" in sd:
+            fp["align"] = _conv_np(sd, f"{pre}.low_res_align")
+        fp["fusion"], fs["fusion"] = conv_bn(f"{pre}.fusion")
+        fp["attn_conv"], fs["attn_conv"] = conv_bn(f"{pre}.attention")
+        fp["attn_proj"] = _conv_np(sd, f"{pre}.attention.3")
+        params[f"fuse{i}"], stats[f"fuse{i}"] = fp, fs
+    params["final"] = _conv_np(sd, "final_conv")
+    return {"params": params, "batch_stats": stats}
+
+
+def ae_to_numpy(sd: dict) -> dict:
+    """The inverse of `ae_from_numpy`: encoder.{3i} -> fc_i, encoder.{3i-2}
+    -> bn_i, decoder.{2i} -> fc_i."""
+    enc, enc_stats, dec = {}, {}, {}
+    for key in sd:
+        part, idx, leaf = key.split(".")
+        if leaf != "weight":
+            continue
+        i = int(idx)
+        if part == "decoder":
+            dec[f"fc{i // 2}"] = _dense_np(sd, f"decoder.{i}")
+        elif i % 3 == 0:
+            enc[f"fc{i // 3}"] = _dense_np(sd, f"encoder.{i}")
+        else:
+            enc[f"bn{(i + 2) // 3}"] = _norm_np(sd, f"encoder.{i}")
+            enc_stats[f"bn{(i + 2) // 3}"] = _stats_np(sd, f"encoder.{i}")
+    return {"params": {"encoder": enc, "decoder": dec}, "batch_stats": {"encoder": enc_stats}}
+
+
+def text_to_numpy(sd: dict, heads: int) -> dict:
+    """The inverse of `text_from_numpy`; `heads` splits the attention
+    kernels into flax's (width, heads, head_dim) layout."""
+    p = {"token_embedding": _np(sd["token_embedding.weight"]),
+         "positional_embedding": _np(sd["positional_embedding"]),
+         "text_projection": _np(sd["text_projection"]),
+         "ln_final": _norm_np(sd, "ln_final")}
+    i = 0
+    while f"transformer.resblocks.{i}.attn.in_proj_weight" in sd:
+        pre = f"transformer.resblocks.{i}"
+        w_qkv = _np(sd[f"{pre}.attn.in_proj_weight"])
+        b_qkv = _np(sd[f"{pre}.attn.in_proj_bias"])
+        width = w_qkv.shape[1]
+        hd = width // heads
+        attn = {name: {"kernel": w.T.reshape(width, heads, hd).copy(),
+                       "bias": b.reshape(heads, hd)}
+                for name, w, b in zip(("query", "key", "value"), np.split(w_qkv, 3),
+                                      np.split(b_qkv, 3))}
+        attn["out"] = {"kernel": _np(sd[f"{pre}.attn.out_proj.weight"]).T.reshape(
+            heads, hd, width).copy(), "bias": _np(sd[f"{pre}.attn.out_proj.bias"])}
+        p[f"resblock{i}"] = {"ln_1": _norm_np(sd, f"{pre}.ln_1"),
+                             "ln_2": _norm_np(sd, f"{pre}.ln_2"), "attn": attn,
+                             "mlp_c_fc": _dense_np(sd, f"{pre}.mlp.c_fc"),
+                             "mlp_c_proj": _dense_np(sd, f"{pre}.mlp.c_proj")}
+        i += 1
+    return p
+
+
+def text_config(tree: dict) -> dict:
+    """TextTower keyword arguments read off a text parameter tree."""
+    q = np.asarray(tree["resblock0"]["attn"]["query"]["kernel"])
+    layers = 0
+    while f"resblock{layers}" in tree:
+        layers += 1
+    return dict(vocab_size=np.asarray(tree["token_embedding"]).shape[0],
+                context_length=np.asarray(tree["positional_embedding"]).shape[0],
+                width=q.shape[0], heads=q.shape[1], layers=layers,
+                embed_dim=np.asarray(tree["text_projection"]).shape[1])
 
 
 def cameras_from_numpy(frames: dict, intrinsics: dict, device="cpu") -> dict:

@@ -174,12 +174,14 @@ def write_annotations(extractor, frame_indices, out_dir) -> Path:
 
 def run_synthetic_miou(config, *, max_frames=None, every: int = 5, out_dir=None,
                        stage: int | None = None, train_steps: int = 300,
-                       seed: int = 0, device="cuda") -> dict:
+                       seed: int = 0, device="cuda", return_extractor: bool = False):
     """SLAM on the synthetic scene with class-embedding language
     supervision, then the rendered maps scored with the LERF eval. Returns
     evaluate_scene's dict plus the run's context (stage, frames, AE
     round-trip cosine, keyframes, online-AE steps, eval PSNR, wall and
-    phase times). `stage` defaults to the config's language.single_stage."""
+    phase times); with `return_extractor`, (that dict, the extractor), so
+    a caller can decode the maps the run left in `out_dir/miou/lang`.
+    `stage` defaults to the config's language.single_stage."""
     import tempfile
 
     from ..models.checkpoints import OnlineAETrainer
@@ -238,4 +240,4 @@ def run_synthetic_miou(config, *, max_frames=None, every: int = 5, out_dir=None,
         phase_times=dict(slam.phase_times),
         multilevel={k: ml[k] for k in ("miou", "localization_acc", "num_queries")},
     )
-    return result
+    return (result, extractor) if return_extractor else result

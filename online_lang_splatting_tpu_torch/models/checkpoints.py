@@ -27,6 +27,34 @@ def load_npz_tree(path) -> dict:
     return tree
 
 
+def save_npz_tree(path, tree: dict):
+    """A nested numpy dict -> an npz with 'a/b/c' keys (the layout
+    tools/convert_weights.py writes and `load_npz_tree` reads)."""
+    flat = {}
+
+    def rec(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(f"{prefix}/{k}" if prefix else k, v)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    rec("", tree)
+    np.savez(path, **flat)
+
+
+def load_text_tower(path, device="cuda"):
+    """The CLIP text tower from a clip_text.npz tree, its size read off
+    the tree."""
+    from ..convert import text_config, text_from_numpy
+    from .text_tower import TextTower
+
+    tree = load_npz_tree(path)
+    tower = TextTower(**text_config(tree))
+    tower.load_state_dict(text_from_numpy(tree))
+    return tower.to(device).eval().requires_grad_(False)
+
+
 def load_extractor_from_dir(weights_dir, config, device="cuda"):
     """Build the fused language extractor (+ the online AE trainer in
     two-stage mode) from a directory of tools/convert_weights.py outputs.

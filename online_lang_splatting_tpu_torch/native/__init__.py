@@ -89,6 +89,11 @@ class LibpngDecoder:
             path)
         return out
 
+    def pixels(self, path):
+        """A PNG's samples unchanged, as `ZlibDecoder.pixels` reads them
+        (frame_decode.cpp converts while it decodes)."""
+        return _zlib_decoder().pixels(path)
+
     def depth(self, path, h: int, w: int, scale: float) -> np.ndarray:
         """(h, w) float32, the PNG value / scale."""
         out = np.empty((h, w), np.float32)
@@ -183,6 +188,15 @@ class ZlibDecoder:
 
 _lock = threading.Lock()
 _decoder = None
+_zlib = None
+
+
+def _zlib_decoder() -> ZlibDecoder:
+    global _zlib
+    with _lock:
+        if _zlib is None:
+            _zlib = ZlibDecoder()
+        return _zlib
 
 
 def decoder():

@@ -1,12 +1,25 @@
-"""Image metrics (port of ops/losses.py): PSNR, windowed SSIM and
-MS-SSIM (11x11 Gaussian window, sigma 1.5, zero padding), and the Scharr
-gradients with reflect padding that build the tracking gradient mask.
-Images are channel-first (C, H, W)."""
+"""Image losses and metrics (port of ops/losses.py): L1 with the JAX
+package's gradient at a zero residual, PSNR, windowed SSIM and MS-SSIM
+(11x11 Gaussian window, sigma 1.5, zero padding), and the Scharr gradients
+with reflect padding that build the tracking gradient mask. Images are
+channel-first (C, H, W)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def abs_(x: torch.Tensor) -> torch.Tensor:
+    """|x| whose gradient at x == 0 is +1, as `jnp.abs` differentiates
+    (torch.abs gives 0 there). Every L1 on a gradient path goes through it:
+    where a residual is exactly zero (a language channel with zero
+    supervision and zero features) JAX still pushes the parameters."""
+    return torch.where(x >= 0, x, -x)
+
+
+def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return abs_(x - y).mean()
 
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ..models import gaussians as G
 from ..ops import lie
+from ..ops.losses import l1_loss
 from ..ops.raster import RasterSettings
 from . import losses as L
 from .camera import Camera
@@ -80,7 +81,7 @@ def scan_slot_grads(params: G.GaussianParams, active, proj, slot_r, slot_t,
                                    ea, eb, initialization=init_mode)
         if bool(lang_on[s]):
             lang_hw = resize_bilinear(langs[s], image.shape[1:])
-            loss = loss + lang_weight * torch.abs(out.language - lang_hw).mean()
+            loss = loss + lang_weight * l1_loss(out.language, lang_hw)
         grads = torch.autograd.grad(loss, [*p, rho, theta, ea, eb, m2d],
                                     allow_unused=True)
         with torch.no_grad():

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.losses import abs_
+
 
 def loss_tracking_rgbd(image, depth, opacity, gt_image, gt_depth, grad_mask,
                        exposure_a, exposure_b, *, alpha=0.95,
@@ -13,9 +15,9 @@ def loss_tracking_rgbd(image, depth, opacity, gt_image, gt_depth, grad_mask,
     image_ab = torch.exp(exposure_a) * image + exposure_b
     rgb_mask = (torch.sum(gt_image, dim=0) > rgb_boundary_threshold)[None]
     rgb_mask = rgb_mask * grad_mask
-    l1_rgb = (opacity * torch.abs(image_ab * rgb_mask - gt_image * rgb_mask)).mean()
+    l1_rgb = (opacity * abs_(image_ab * rgb_mask - gt_image * rgb_mask)).mean()
     depth_mask = (gt_depth > 0.01) & (opacity > 0.95)
-    l1_depth = torch.abs(depth * depth_mask - gt_depth * depth_mask).mean()
+    l1_depth = abs_(depth * depth_mask - gt_depth * depth_mask).mean()
     return alpha * l1_rgb + (1 - alpha) * l1_depth
 
 
@@ -26,14 +28,14 @@ def loss_mapping_rgbd(image, depth, gt_image, gt_depth, exposure_a,
         torch.exp(exposure_a) * image + exposure_b)
     rgb_mask = (torch.sum(gt_image, dim=0) > rgb_boundary_threshold)[None]
     depth_mask = gt_depth > 0.01
-    l1_rgb = torch.abs(image_ab * rgb_mask - gt_image * rgb_mask).mean()
-    l1_depth = torch.abs(depth * depth_mask - gt_depth * depth_mask).mean()
+    l1_rgb = abs_(image_ab * rgb_mask - gt_image * rgb_mask).mean()
+    l1_depth = abs_(depth * depth_mask - gt_depth * depth_mask).mean()
     return alpha * l1_rgb + (1 - alpha) * l1_depth
 
 
 def isotropic_loss(scaling, active):
     """Masked mean |s - mean(s)| over active Gaussians (callers weight 10x)."""
-    dev = torch.abs(scaling - scaling.mean(dim=1, keepdim=True))
+    dev = abs_(scaling - scaling.mean(dim=1, keepdim=True))
     w = active.to(scaling.dtype)[:, None]
     return (dev * w).sum() / torch.clamp(w.sum() * scaling.shape[1], min=1.0)
 

@@ -35,7 +35,7 @@ def refine_step(params: G.GaussianParams, opt: G.AdamState, active, proj, image,
     loss)."""
     p = G.GaussianParams(*(x.detach().requires_grad_(True) for x in params))
     out = render(activate(p, active), view, proj, settings)
-    l1 = torch.abs(out.color - image).mean()
+    l1 = losses.l1_loss(out.color, image)
     loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (1.0 - losses.ssim(out.color, image))
     grads = torch.autograd.grad(loss, list(p), allow_unused=True)
     grads = G.GaussianParams(*(torch.zeros_like(x) if g is None else g

@@ -31,8 +31,6 @@ import argparse
 from datetime import datetime
 from pathlib import Path
 
-import numpy as np
-import torch
 import yaml
 
 
@@ -50,15 +48,13 @@ def main(argv=None):
                         help="resume from a ckpt_*.npz snapshot")
     args = parser.parse_args(argv)
 
-    from online_lang_splatting_tpu_torch import pin_f32_matmul
+    from online_lang_splatting_tpu_torch import entry_device
     from online_lang_splatting_tpu_torch.slam.config import load_config
     from online_lang_splatting_tpu_torch.slam.system import SLAM
 
     # Full float32 for matmuls and convolutions (TF32 off), as the JAX
-    # reference pins "highest" precision.
-    pin_f32_matmul()
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("--device cuda requested but CUDA is not available")
+    # reference pins "highest" precision; no CPU fallback.
+    entry_device(args.device)
     config = load_config(args.config)
     results = config.setdefault("Results", {})
     if args.eval:
@@ -114,11 +110,10 @@ def main(argv=None):
             save_gaussians_ply(save_dir / "gaussians_final_after_opt.ply", be.params, be.aux)
             if be.online_ae is not None:
                 from online_lang_splatting_tpu_torch.convert import online_ae_to_numpy
+                from online_lang_splatting_tpu_torch.models.checkpoints import save_npz_tree
 
-                np.savez(save_dir / "online_ae.npz", **{
-                    f"params/{k1}/{k2}": v
-                    for k1, sub in online_ae_to_numpy(be.online_ae.model.state_dict()).items()
-                    for k2, v in sub.items()})
+                save_npz_tree(save_dir / "online_ae.npz",
+                              {"params": online_ae_to_numpy(be.online_ae.model.state_dict())})
     return slam
 
 

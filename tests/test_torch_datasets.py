@@ -6,7 +6,7 @@ Replica-v1 (JPEG colour), a EuRoC stereo pair, a `distorted` Replica-v2
 config and per-frame language labels. The port's `__getitem__` must equal
 the JAX package's exactly (colour, depth, pose, labels), and so must the
 port's zlib decoder (the card's machine has no libpng headers) equal its
-libpng decoder, on PIL's files and on chip_smoke.py's PNG writer's, which
+libpng decoder, on PIL's files and on the port's PNG writer's, which
 uses all five PNG filter types.
 """
 
@@ -165,17 +165,17 @@ def _filter_types(path, h):
 def test_zlib_decoder_matches_libpng_on_every_filter_type(trees, tmp_path):
     """The zlib decoder equals the libpng decoder (and the JAX package's)
     on PIL's PNGs, whose encoder picks filters 1, 2 and 4 here, and on
-    chip_smoke.py's writer's, which cycles all five; it refuses JPEG,
-    naming libjpeg."""
-    import chip_smoke
+    the port's writer's (utils/png.py, used by chip_smoke.py), which cycles
+    all five; it refuses JPEG, naming libjpeg."""
     from online_lang_splatting_tpu import native as jnative
+    from online_lang_splatting_tpu_torch.utils.png import write_png
 
     root = trees["replicav2"]["Dataset"]["dataset_path"]
     zdec, ldec = native.ZlibDecoder(), native.LibpngDecoder()
     h, w = 64, 96
     color, depth, _ = _frames()[1][1]
-    chip_smoke._png(tmp_path / "rgb.png", _rgb_u8(color))
-    chip_smoke._png(tmp_path / "depth.png", _depth_u16(depth))
+    write_png(tmp_path / "rgb.png", _rgb_u8(color))
+    write_png(tmp_path / "depth.png", _depth_u16(depth))
     kinds = set()
     for path, kind in [(f"{root}/rgb/rgb_{i}.png", "rgb") for i in range(N_FRAMES)] + [
             (f"{root}/depth/depth_{i}.png", "depth") for i in range(N_FRAMES)] + [
