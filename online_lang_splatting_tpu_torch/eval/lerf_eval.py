@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .polygon import polygons_to_mask
 from .relevancy import CLIPRelevancy, pairwise_relevancy
 
 
@@ -162,7 +163,7 @@ def load_annotations(ann_path) -> dict:
             frame: dict = {}
             for obj in data["objects"]:
                 label = obj["category"]
-                mask = _polygons_to_mask((h, w), obj["segmentation"])
+                mask = polygons_to_mask((h, w), obj["segmentation"])
                 box = np.asarray(obj["bbox"], np.float32).reshape(-1, 4)
                 if label in frame:
                     frame[label]["mask"] = np.logical_or(frame[label]["mask"], mask)
@@ -179,17 +180,6 @@ def load_annotations(ann_path) -> dict:
             q["mask"] = np.asarray(q["mask"])
             q["bboxes"] = np.asarray(q["bboxes"])
     return anns
-
-
-def _polygons_to_mask(shape, points_list):
-    # Labelme polygons are filled with OpenCV, as the JAX package does;
-    # only this annotation format needs it.
-    import cv2
-
-    mask = np.zeros(shape, np.uint8)
-    for pts in points_list:
-        cv2.fillPoly(mask, [np.asarray(pts, np.int32)], 1)
-    return mask
 
 
 def _scene_result(iou_all, acc, total, distinct, frames_scored) -> dict:

@@ -18,6 +18,7 @@ views, not copies.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -123,6 +124,9 @@ class ConvNeXtCLIPVisual(nn.Module):
         flax_init_(self, generator)
 
     def forward(self, x):
+        return promote_call(self, self.trunk.stem[0].weight.dtype, self._forward, x)
+
+    def _forward(self, x):
         out = {}
         x = self.trunk.stem(x.contiguous(memory_format=torch.channels_last))
         out["stem"] = x
@@ -132,6 +136,21 @@ class ConvNeXtCLIPVisual(nn.Module):
         y = self.trunk.head.norm(x.permute(0, 2, 3, 1))
         out["clip_vis_dense"] = self.head.mlp(y).permute(0, 3, 1, 2)
         return out
+
+
+def promote_call(module: nn.Module, weight_dtype: torch.dtype, body, *xs):
+    """`body(*xs)` under flax's promote_dtype rule at a module's entry:
+    inputs and weights meet at their promoted dtype. A bfloat16 input into
+    float32 weights computes in float32, not a downcast; a float32 input
+    into bfloat16 weights computes in float32 with the weights upcast for
+    this call (`torch.func.functional_call`)."""
+    dt = functools.reduce(torch.promote_types, [x.dtype for x in xs], weight_dtype)
+    xs = tuple(x.to(dt) for x in xs)
+    if dt == weight_dtype:
+        return body(*xs)
+    state = {k: v.to(dt) if v.is_floating_point() else v
+             for k, v in module.state_dict(keep_vars=True).items()}
+    return torch.func.functional_call(module, state, xs)
 
 
 def normalize_image(rgb_0_255: torch.Tensor) -> torch.Tensor:

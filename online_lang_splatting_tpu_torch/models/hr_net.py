@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .convnext_clip import resize_bilinear
+from .convnext_clip import promote_call, resize_bilinear
 from .init import flax_init_
 
 
@@ -63,6 +63,9 @@ class HighResLanguageFeatureNet(nn.Module):
         flax_init_(self, generator)
 
     def forward(self, fv, res3, res2):
+        return promote_call(self, self.final_conv.weight.dtype, self._forward, fv, res3, res2)
+
+    def _forward(self, fv, res3, res2):
         x = self.upsample1(self.initial_conv(fv))
         x = self.attention_fusion1(x, resize_bilinear(res3, x.shape[-2:]))
         x = self.upsample2(x)

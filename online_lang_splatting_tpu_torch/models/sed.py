@@ -1,7 +1,10 @@
 """SED-style dense language feature extraction, the fused per-frame path
 (port of models/sed.py): normalize -> resize to 768^2 -> ConvNeXt-L CLIP
 tower -> HR head -> autoencoder encode, frame (H, W, 3) in [0, 255] ->
-(192, 192, low_dim) codes. float32 throughout.
+(192, 192, low_dim) codes. float32 by default; with `compute_dtype`
+(torch.bfloat16) the tower and the HR head run in that dtype, their
+weights cast once at construction, while the autoencoder stays float32 and
+every public output is float32, as in the JAX package.
 
 With no state dicts given, every model is drawn from one seeded
 `torch.Generator` with the flax initializers' scales (models/init.py), so
@@ -34,8 +37,11 @@ class LangFeatureExtractor:
                  use_hr: bool = True, clip_resolution=None,
                  depths: Sequence[int] = DEPTHS, dims: Sequence[int] = DIMS,
                  embed_dim: int = EMBED_DIM, clip_dim: int = 768,
-                 seed: int = 0, device="cuda"):
+                 compute_dtype: torch.dtype | None = None, seed: int = 0, device="cuda"):
         self.device = torch.device(device)
+        # bfloat16 halves the towers' weight and activation traffic; the
+        # frame is cast before the 768^2 resize, so the towers run in it.
+        self.compute_dtype = compute_dtype or torch.float32
         # SED resizes every frame to 768x768 before the dense encode;
         # overridable for small-scale tests.
         self.clip_resolution = tuple(clip_resolution or CLIP_RESOLUTION)
@@ -53,10 +59,13 @@ class LangFeatureExtractor:
         for model in (self.visual, self.hr, self.ae):
             if model is not None:
                 model.to(self.device).eval().requires_grad_(False)
+        for model in (self.visual, self.hr):
+            if model is not None:
+                model.to(self.compute_dtype)
 
     def _frame(self, rgb) -> torch.Tensor:
         rgb = torch.as_tensor(rgb, dtype=torch.float32, device=self.device)
-        x = normalize_image(rgb).permute(2, 0, 1)[None]
+        x = normalize_image(rgb).permute(2, 0, 1)[None].to(self.compute_dtype)
         return resize_bilinear(x, self.clip_resolution)
 
     def _hr_inner(self, rgb):
@@ -70,19 +79,20 @@ class LangFeatureExtractor:
     @torch.no_grad()
     def dense_clip(self, rgb) -> dict:
         """The reference's dense `get_lang_feat`: the pyramid, NHWC."""
-        return {k: v.permute(0, 2, 3, 1) for k, v in self.visual(self._frame(rgb)).items()}
+        return {k: v.permute(0, 2, 3, 1).float()
+                for k, v in self.visual(self._frame(rgb)).items()}
 
     @torch.no_grad()
     def hr_features(self, rgb) -> torch.Tensor:
         """(192, 192, 768) refined CLIP map (the reference hr_model output)."""
-        return self._hr_inner(rgb)[0][0].permute(1, 2, 0)
+        return self._hr_inner(rgb)[0][0].permute(1, 2, 0).float()
 
     @torch.no_grad()
     def encode_frame(self, rgb) -> torch.Tensor:
         """(192, 192, low_dim): the online language supervision map."""
         hr, _ = self._hr_inner(rgb)
         _, c, h, w = hr.shape
-        code = self.ae.encode(hr[0].permute(1, 2, 0).reshape(-1, c))
+        code = self.ae.encode(hr[0].permute(1, 2, 0).reshape(-1, c).float())
         return code.reshape(h, w, -1)
 
     @torch.no_grad()

@@ -7,7 +7,8 @@ Two decoders; `decoder()` chooses one per process at first use and keeps it:
 * "zlib": where the libpng / libjpeg headers are missing, PNG is decoded
   here: the chunks parsed in Python, the image stream inflated by the
   standard library's zlib, the row filters undone by `png_unfilter.cpp`
-  (built by the same g++ step, no dependency). JPEG raises, naming libjpeg.
+  (built by the same g++ step, no dependency). JPEG is decoded by PIL,
+  whose samples the tests hold to frame_decode.cpp's libjpeg decode.
 
 Both give the values frame_decode.cpp gives: colour u8 * (1/255) and depth
 u16 * (1/scale), each reciprocal rounded to float32 first. The libraries go
@@ -36,6 +37,7 @@ FRAME_DECODE_SRC = _REPO / "native" / "frame_decode.cpp"
 UNFILTER_SRC = Path(__file__).resolve().parent / "png_unfilter.cpp"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SOI = b"\xff\xd8"
 # frame_decode.cpp's return codes.
 _ERRORS = {-1: "cannot open", -2: "not a PNG or JPEG", -3: "size mismatch",
            -4: "decode error"}
@@ -104,8 +106,9 @@ class LibpngDecoder:
 
 
 class ZlibDecoder:
-    """PNG through the standard library's zlib and png_unfilter.cpp; no
-    JPEG. Non-interlaced PNG of bit depth 8 or 16, every colour type."""
+    """PNG through the standard library's zlib and png_unfilter.cpp, JPEG
+    through PIL. Non-interlaced PNG of bit depth 8 or 16, every colour
+    type; JPEG as 8-bit RGB."""
 
     name = "zlib"
     _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -118,12 +121,16 @@ class ZlibDecoder:
         self._lib = lib
 
     def pixels(self, path):
-        """(h, w, channels) uint8 / uint16 samples, colour type, palette."""
+        """(h, w, channels) uint8 / uint16 samples, colour type, palette.
+        A JPEG reads as (h, w, 3) uint8 RGB, colour type 2."""
         data = Path(path).read_bytes()
+        if data[:2] == JPEG_SOI:
+            from PIL import Image
+
+            with Image.open(path) as im:
+                return np.asarray(im.convert("RGB")), 2, None
         if data[:8] != PNG_SIGNATURE:
-            raise RuntimeError(
-                f"{path}: not a PNG; the zlib decoder reads PNG only, and JPEG needs "
-                "libjpeg, whose headers were missing when the decoder was built")
+            raise RuntimeError(f"{path}: neither a PNG nor a JPEG")
         pos, idat, palette, header = 8, [], None, None
         while pos + 8 <= len(data):
             length, kind = struct.unpack(">I4s", data[pos:pos + 8])
@@ -211,6 +218,6 @@ def decoder():
                 lines = str(e).splitlines() or [type(e).__name__]
                 why = next((ln for ln in lines if "error" in ln), lines[0])
                 print(f"[native] libpng / libjpeg decoder unavailable ({why.strip()}); "
-                      "PNG decodes through zlib + png_unfilter, JPEG is unsupported")
+                      "PNG decodes through zlib + png_unfilter, JPEG through PIL")
                 _decoder = ZlibDecoder()
         return _decoder

@@ -7,8 +7,10 @@ rgb/rgb_*.png, depth/depth_*.png, traj_w_c.txt used verbatim as W2C),
 (rectified stereo pair, SGBM depth), `RealsenseDataset` (live capture),
 and the analytic `SyntheticDataset`, which needs no data on disk. Frames
 decode through the port's own decoder (`native.decoder()`, chosen once per
-process); cv2 and pyrealsense2 are imported only by the layouts that need
-them.
+process). Lens undistortion and stereo rectification maps are built here
+(`undistort_rectify_map`, equal to OpenCV's) and applied by `Remap`;
+pyrealsense2 is imported only for live capture, and cv2 only by EuRoC's
+`__getitem__`, for the uint8 remap and SGBM of the stereo pair.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import re
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .. import native
 from ..ops import graphics
@@ -28,6 +31,79 @@ def _natsorted(paths):
         return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", s)]
 
     return sorted(paths, key=key)
+
+
+def undistort_rectify_map(k, dist, r, k_new, size):
+    """(map_x, map_y) float32 (H, W): for each pixel of the rectified image
+    the source position, through K_new^-1, R^-1 and the Brown-Conrady model
+    (k1, k2, p1, p2, k3) of camera K, in float64 rounded once to float32
+    as `cv2.initUndistortRectifyMap(k, dist, r, k_new, size, CV_32FC1)`
+    computes it: bit-equal for R = I, K_new = K; with a rectifying R an
+    odd value differs by one float32 ulp, where OpenCV's vector code fuses
+    a multiply-add (tests/test_torch_datasets.py)."""
+    w, h = size
+    ir = np.linalg.inv(np.asarray(k_new, np.float64) @ np.asarray(r, np.float64))
+    k1, k2, p1, p2, k3 = (float(c) for c in dist)
+    j = np.arange(w, dtype=np.float64)[None]
+    i = np.arange(h, dtype=np.float64)[:, None]
+    xw = i * ir[0, 1] + ir[0, 2] + j * ir[0, 0]
+    yw = i * ir[1, 1] + ir[1, 2] + j * ir[1, 0]
+    ww = i * ir[2, 1] + ir[2, 2] + j * ir[2, 0]
+    inv = 1.0 / ww
+    x, y = xw * inv, yw * inv
+    x2, y2 = x * x, y * y
+    r2, xy2 = x2 + y2, 2 * x * y
+    kr = 1 + ((k3 * r2 + k2) * r2 + k1) * r2
+    u = k[0][0] * (x * kr + p1 * xy2 + p2 * (r2 + 2 * x2)) + k[0][2]
+    v = k[1][1] * (y * kr + p1 * (r2 + 2 * y2) + p2 * xy2) + k[1][2]
+    return u.astype(np.float32), v.astype(np.float32)
+
+
+class Remap:
+    """Bilinear sampling of (C, H, W) float images at a float map's
+    positions, zero outside the source: `cv2.remap(INTER_LINEAR,
+    BORDER_CONSTANT)` on float32, bit for bit (two x lerps and one y lerp,
+    each a fused multiply-add, emulated in float64 and rounded once).
+
+    The four taps' flat indices and the fractions are computed once; they
+    are moved to a tensor's device at its first use there."""
+
+    def __init__(self, map_x: np.ndarray, map_y: np.ndarray, src_hw):
+        h, w = src_hw
+        x0, y0 = np.floor(map_x).astype(np.int64), np.floor(map_y).astype(np.int64)
+        taps, valid = [], []
+        for dy in (0, 1):
+            for dx in (0, 1):
+                yy, xx = y0 + dy, x0 + dx
+                ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                taps.append(np.where(ok, yy * w + xx, 0).reshape(-1))
+                valid.append(ok.reshape(-1))
+        self.shape = map_x.shape
+        self._host = {
+            "taps": torch.as_tensor(np.stack(taps)),
+            "valid": torch.as_tensor(np.stack(valid)),
+            "ax": torch.as_tensor((map_x - x0).astype(np.float32).reshape(-1)),
+            "ay": torch.as_tensor((map_y - y0).astype(np.float32).reshape(-1)),
+        }
+        self._on = {torch.device("cpu"): self._host}
+
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        """(C, H, W) float32 -> (C, *map shape) float32 on img's device."""
+        dev = img.device
+        if dev not in self._on:
+            self._on[dev] = {k: v.to(dev) for k, v in self._host.items()}
+        t = self._on[dev]
+        flat = img.reshape(img.shape[0], -1)
+        v = [torch.where(ok, flat[:, idx], 0.0) for idx, ok in zip(t["taps"], t["valid"])]
+        top = _fma(t["ax"], v[1] - v[0], v[0])
+        bottom = _fma(t["ax"], v[3] - v[2], v[2])
+        return _fma(t["ay"], bottom - top, top).reshape(img.shape[0], *self.shape)
+
+
+def _fma(a, b, c):
+    """a * b + c for float32 tensors, rounded once (float64 holds the
+    product exactly)."""
+    return (a.double() * b.double() + c.double()).float()
 
 
 class BaseDataset:
@@ -47,15 +123,13 @@ class BaseDataset:
         self.distorted = calib.get("distorted", False)
         self.dist_coeffs = np.array(
             [calib.get(k, 0.0) for k in ("k1", "k2", "p1", "p2", "k3")])
-        self._undistort_maps = None
+        self.undistort = None
         if self.distorted:
-            # Built once; every frame is remapped through them.
-            import cv2
-
+            # Built once; every frame is remapped through it.
             k = np.array([[self.fx, 0, self.cx], [0, self.fy, self.cy], [0, 0, 1]])
-            self._undistort_maps = cv2.initUndistortRectifyMap(
-                k, self.dist_coeffs, np.eye(3), k, (self.width, self.height),
-                cv2.CV_32FC1)
+            self.undistort = Remap(*undistort_rectify_map(
+                k, self.dist_coeffs, np.eye(3), k, (self.width, self.height)),
+                (self.height, self.width))
         self.color_paths: list[str] = []
         self.depth_paths: list[str] = []
         self.poses: list[np.ndarray] = []
@@ -71,12 +145,8 @@ class BaseDataset:
     def __getitem__(self, idx):
         dec = native.decoder()
         color = dec.rgb(self.color_paths[idx], self.height, self.width)
-        if self._undistort_maps is not None:
-            import cv2
-
-            hwc = cv2.remap(color.transpose(1, 2, 0), self._undistort_maps[0],
-                            self._undistort_maps[1], cv2.INTER_LINEAR)
-            color = hwc.transpose(2, 0, 1)
+        if self.undistort is not None:
+            color = self.undistort(torch.from_numpy(color)).numpy()
         depth = dec.depth(self.depth_paths[idx], self.height, self.width,
                           float(self.depth_scale))
         gt_lang = lang_mask = None
@@ -271,8 +341,9 @@ class EuRoCDataset(BaseDataset):
 
     With `distorted` set and cam0 / cam1 calibration present (the
     reference configs' layout: cam{0,1}: {raw: {fx..k3}, opt: {fx..cy},
-    R: {data: 9}}), both images are remapped through
-    cv2.initUndistortRectifyMap before SGBM."""
+    R: {data: 9}}), both images are remapped through rectification maps
+    (`undistort_rectify_map`) before SGBM. The uint8 remap and SGBM stay
+    OpenCV's: they are the one place the port imports cv2."""
 
     def __init__(self, config: dict):
         super().__init__(config)
@@ -281,8 +352,6 @@ class EuRoCDataset(BaseDataset):
         calib = config["Dataset"]["Calibration"]
         self._rect_maps = None
         if calib.get("distorted", False) and "cam0" in calib:
-            import cv2
-
             def cam_maps(cam):
                 raw, opt = cam["raw"], cam["opt"]
                 k_raw = np.array([[raw["fx"], 0.0, raw["cx"]], [0.0, raw["fy"], raw["cy"]],
@@ -291,8 +360,8 @@ class EuRoCDataset(BaseDataset):
                 rmat = np.array(cam["R"]["data"]).reshape(3, 3)
                 k_new = np.array([[opt["fx"], 0.0, opt["cx"]], [0.0, opt["fy"], opt["cy"]],
                                   [0.0, 0.0, 1.0]])
-                return cv2.initUndistortRectifyMap(k_raw, dist, rmat, k_new,
-                                                   (self.width, self.height), cv2.CV_32FC1)
+                return undistort_rectify_map(k_raw, dist, rmat, k_new,
+                                             (self.width, self.height))
 
             self._rect_maps = (cam_maps(calib["cam0"]), cam_maps(calib["cam1"]))
         self.color_paths = _natsorted(
@@ -320,6 +389,7 @@ class EuRoCDataset(BaseDataset):
         self.color_paths_r = [self.color_paths_r[i] for i in keep]
 
     def __getitem__(self, idx):
+        # SGBM has no PyTorch counterpart: the port's only use of OpenCV.
         import cv2
 
         left = cv2.imread(self.color_paths[idx], cv2.IMREAD_GRAYSCALE)
@@ -368,12 +438,9 @@ class RealsenseDataset(BaseDataset):
         frames = self.align.process(self.pipeline.wait_for_frames())
         color = np.asanyarray(frames.get_color_frame().get_data())
         depth = np.asanyarray(frames.get_depth_frame().get_data())
-        if self._undistort_maps is not None:
-            import cv2
-
-            color = cv2.remap(color, self._undistort_maps[0], self._undistort_maps[1],
-                              cv2.INTER_LINEAR)
         color = np.transpose(color.astype(np.float32) / 255.0, (2, 0, 1))
+        if self.undistort is not None:
+            color = self.undistort(torch.from_numpy(np.ascontiguousarray(color))).numpy()
         depth = depth.astype(np.float32) / self.depth_scale
         return np.clip(color, 0, 1), depth, np.eye(4, dtype=np.float32), None, None
 

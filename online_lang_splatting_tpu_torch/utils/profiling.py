@@ -1,0 +1,83 @@
+"""Profiling and timing helpers (port of utils/profiling.py).
+
+`trace(log_dir)` records a `torch.profiler` trace of the CPU and, where
+present, the card, written for TensorBoard / Perfetto under `log_dir`.
+`Timers` sums wall-clock spans; a span with a fence waits for the work
+queued on the fence's device (`torch.cuda.synchronize`) before it stops
+its clock, so asynchronous launches are charged to the span that queued
+them. The report keeps the JAX package's text format.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a torch.profiler trace viewable in TensorBoard/Perfetto."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield
+
+
+def _sync(fence):
+    """Wait for the queued work on the devices of `fence` (a tensor, a
+    device, or a nested list / tuple / dict of tensors)."""
+    if isinstance(fence, dict):
+        fence = list(fence.values())
+    if isinstance(fence, (list, tuple)):
+        for f in fence:
+            _sync(f)
+        return
+    device = fence.device if isinstance(fence, torch.Tensor) else torch.device(fence)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Timers:
+    """Wall-clock spans with device fencing.
+
+    A span fences on a provided tensor (or device) so asynchronous
+    launches are not charged to a later span. Usage:
+
+        timers = Timers()
+        with timers.span("tracking", fence=out.color):
+            ...
+        print(timers.report())
+    """
+
+    def __init__(self):
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+
+    @contextlib.contextmanager
+    def span(self, name: str, fence=None):
+        t0 = time.perf_counter()
+        yield
+        if fence is not None:
+            _sync(fence)
+        dt = time.perf_counter() - t0
+        self.totals[name] += dt
+        self.counts[name] += 1
+
+    def report(self) -> str:
+        lines = []
+        for name in sorted(self.totals):
+            n = self.counts[name]
+            tot = self.totals[name]
+            lines.append(
+                f"{name}: total {tot:.3f}s over {n} calls "
+                f"({tot / max(n, 1) * 1000:.1f} ms avg)"
+            )
+        return "\n".join(lines)

@@ -12,6 +12,7 @@ uses all five PNG filter types.
 
 import threading
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from online_lang_splatting_tpu_torch.slam import datasets
 from online_lang_splatting_tpu_torch.slam.config import load_config
 from online_lang_splatting_tpu_torch.slam.prefetch import CameraPrefetcher, PrefetchDataset
 
+REPO = Path(__file__).resolve().parents[1]
 N_FRAMES = 4
 DEPTH_SCALE = 5000.0
 LAYOUTS = ("replicav2", "tum", "replica", "euroc", "distorted")
@@ -166,7 +168,7 @@ def test_zlib_decoder_matches_libpng_on_every_filter_type(trees, tmp_path):
     """The zlib decoder equals the libpng decoder (and the JAX package's)
     on PIL's PNGs, whose encoder picks filters 1, 2 and 4 here, and on
     the port's writer's (utils/png.py, used by chip_smoke.py), which cycles
-    all five; it refuses JPEG, naming libjpeg."""
+    all five; JPEG decodes to libjpeg's samples."""
     from online_lang_splatting_tpu import native as jnative
     from online_lang_splatting_tpu_torch.utils.png import write_png
 
@@ -195,9 +197,13 @@ def test_zlib_decoder_matches_libpng_on_every_filter_type(trees, tmp_path):
     np.testing.assert_array_equal(
         zdec.rgb(tmp_path / "rgb.png", h, w),
         _rgb_u8(color).transpose(2, 0, 1).astype(np.float32) * (np.float32(1) / np.float32(255)))
+    # JPEG (Replica v1 and the demo image) decodes through PIL in the zlib
+    # mode: exactly libjpeg's samples.
     jpg = f"{trees['replica']['Dataset']['dataset_path']}/results/frame000000.jpg"
-    with pytest.raises(RuntimeError, match="libjpeg"):
-        zdec.rgb(jpg, h, w)
+    for path, (jh, jw) in ((jpg, (h, w)), (REPO / "sample/demo_room.jpg", (680, 1200))):
+        got = zdec.rgb(path, jh, jw)
+        np.testing.assert_array_equal(got, ldec.rgb(path, jh, jw))
+        np.testing.assert_array_equal(got, jnative.decode_rgb(str(path), jh, jw))
     with pytest.raises(RuntimeError, match="size"):
         ldec.rgb(f"{root}/rgb/rgb_0.png", h + 1, w)
 
@@ -237,3 +243,70 @@ def test_realsense_and_unknown_types_raise_like_jax():
     cfg["Dataset"]["type"] = "nope"
     with pytest.raises(ValueError, match="Unknown dataset type"):
         datasets.load_dataset(cfg)
+
+
+def _rodrigues(v):
+    """Rotation matrix of an axis-angle vector."""
+    theta = np.linalg.norm(v)
+    k = np.asarray(v) / theta
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(theta) * kx + (1 - np.cos(theta)) * kx @ kx
+
+
+@pytest.mark.parametrize("size", [(1200, 680), (64, 48)])
+def test_undistortion_matches_opencv(size):
+    """The undistortion map equals cv2.initUndistortRectifyMap bit for bit
+    for R = I with K_new = K. With a rectifying R and another K_new, at
+    most 4 of the 2 x w x h values differ, each by one float32 ulp
+    (OpenCV's vector code fuses multiply-adds; 1 value of 1.6 M at
+    1200x680, 4.7e-10 px). `Remap` equals cv2.remap(INTER_LINEAR) on a
+    random float32 image bit for bit, inside the frame and on the pixels
+    whose taps leave it (zero border)."""
+    import cv2
+    import torch
+
+    w, h = size
+    k = np.array([[0.5 * w, 0, w / 2 - 0.5], [0, 0.5 * w, h / 2 - 0.5], [0, 0, 1.0]])
+    dist = np.array([0.05, -0.01, 0.001, -0.0015, 0.003])
+    r = _rodrigues([0.01, -0.02, 0.005])
+    k_new = np.array([[0.48 * w, 0, w / 2 + 3], [0, 0.49 * w, h / 2 - 2], [0, 0, 1.0]])
+    img = np.random.default_rng(0).uniform(0, 1, (h, w, 3)).astype(np.float32)
+    for rot, kn in ((np.eye(3), k), (r, k_new)):
+        mx, my = datasets.undistort_rectify_map(k, dist, rot, kn, (w, h))
+        rx, ry = cv2.initUndistortRectifyMap(k, dist, rot, kn, (w, h), cv2.CV_32FC1)
+        if kn is k:
+            np.testing.assert_array_equal(mx, rx)
+            np.testing.assert_array_equal(my, ry)
+        else:
+            for a, b in ((mx, rx), (my, ry)):
+                off = a != b
+                assert off.sum() <= 4
+                np.testing.assert_array_equal(np.abs(a.view(np.int32) - b.view(np.int32))[off], 1)
+        got = datasets.Remap(rx, ry, (h, w))(torch.from_numpy(img.transpose(2, 0, 1).copy()))
+        ref = cv2.remap(img, rx, ry, cv2.INTER_LINEAR).transpose(2, 0, 1)
+        border = ~((rx >= 0) & (rx < w - 1) & (ry >= 0) & (ry < h - 1))
+        assert border.sum() > 0
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_euroc_rectification_matches_jax(trees):
+    """EuRoC with cam0 / cam1 rectification: the port's maps feed the same
+    uint8 remap and SGBM as the JAX loader's cv2 maps; the depth and the
+    colour are equal exactly."""
+    import copy
+
+    cfg = copy.deepcopy(trees["euroc"])
+    c = cfg["Dataset"]["Calibration"]
+    raw = dict(fx=c["fx"], fy=c["fy"], cx=c["cx"], cy=c["cy"], k1=0.04, k2=-0.01, p1=0.001,
+               p2=-0.0005, k3=0.002)
+    opt = dict(fx=c["fx"] * 0.97, fy=c["fy"] * 0.97, cx=c["cx"] + 1.5, cy=c["cy"] - 0.5)
+    c.update(distorted=True,
+             cam0=dict(raw=raw, opt=opt, R=dict(data=_rodrigues([0.004, -0.01, 0.002]).ravel()
+                                                 .tolist())),
+             cam1=dict(raw=raw, opt=opt, R=dict(data=_rodrigues([-0.003, 0.008, -0.001]).ravel()
+                                                 .tolist())))
+    got, ref = datasets.load_dataset(cfg), jdatasets.load_dataset(cfg)
+    for i in range(N_FRAMES):
+        for g, r in zip(got[i], ref[i]):
+            if r is not None:
+                np.testing.assert_array_equal(g, r)

@@ -4,7 +4,8 @@ evaluate_scene and its multilevel form, annotations), the synthetic
 scene's semantics and the rendering / trajectory evaluation.
 
 Tolerances: relevancy 1e-6 with labels exact, SSIM / MS-SSIM 1e-5, the box
-blur 1e-5 against OpenCV, IoUs 1e-6 and localization hits exact,
+blur 1e-5 against OpenCV, the polygon fill and labelme masks exact against
+OpenCV, IoUs 1e-6 and localization hits exact,
 gt_semantics exact; the rendering evaluation 1e-4 (the JAX side renders
 through its dense oracle, the port through the plain blend).
 """
@@ -183,6 +184,80 @@ def test_annotations_match_jax(scene):
     for frame in got:
         assert list(got[frame]) == list(ref[frame])
         for label, q in got[frame].items():
+            np.testing.assert_array_equal(q["mask"], ref[frame][label]["mask"])
+            np.testing.assert_array_equal(q["bboxes"], ref[frame][label]["bboxes"])
+
+
+def _polygons(rng, kind, h, w):
+    """Random polygons of one kind: convex (sorted angles), concave
+    (random order, self-intersecting), with a self-touching vertex, with
+    vertices outside the image, or two polygons at once."""
+    n = int(rng.integers(3, 12))
+    if kind == "convex":
+        ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+        r = rng.uniform(3, 0.45 * min(h, w), n)
+        pts = np.stack([w / 2 + r * np.cos(ang), h / 2 + r * np.sin(ang)], 1).round()
+        return [pts.astype(np.int32)]
+    if kind == "outside":
+        return [rng.integers(-20, [w + 20, h + 20], (n, 2)).astype(np.int32)]
+    pts = rng.integers(0, [w, h], (n, 2))
+    if kind == "touching":
+        pts[n // 2] = pts[0]
+    if kind == "two":
+        return [pts.astype(np.int32), rng.integers(-5, [w + 5, h + 5], (5, 2)).astype(np.int32)]
+    return [pts.astype(np.int32)]
+
+
+@pytest.mark.parametrize("kind", ["convex", "concave", "touching", "outside", "two"])
+def test_fill_poly_matches_opencv(kind):
+    """eval/polygon.fill_poly against cv2.fillPoly (8-connected, shift 0),
+    pixel-exact on 300 random polygons of each kind."""
+    import cv2
+
+    from online_lang_splatting_tpu_torch.eval.polygon import fill_poly
+
+    rng = np.random.default_rng(["convex", "concave", "touching", "outside", "two"].index(kind))
+    for _ in range(300):
+        h, w = (int(v) for v in rng.integers(8, 60, 2))
+        polys = _polygons(rng, kind, h, w)
+        ref = np.zeros((h, w), np.uint8)
+        cv2.fillPoly(ref, polys, 1)
+        np.testing.assert_array_equal(fill_poly(np.zeros((h, w), np.uint8), polys, 1), ref)
+
+
+def test_labelme_annotations_match_jax(scene, tmp_path):
+    """A folder of labelme JSONs (the synthetic classes' outer contours as
+    polygons, plus polygons reaching outside the image) reads into the
+    same masks and boxes as the JAX package's cv2.fillPoly reader."""
+    import json
+
+    import cv2
+
+    rng = np.random.default_rng(3)
+    ds = scene["ds"]
+    for idx in scene["frames"]:
+        sem = ds.gt_semantics(idx)
+        objects = []
+        for cls in np.unique(sem):
+            contours, _ = cv2.findContours((sem == cls).astype(np.uint8), cv2.RETR_EXTERNAL,
+                                           cv2.CHAIN_APPROX_SIMPLE)
+            for c in contours:
+                x, y, bw, bh = cv2.boundingRect(c)
+                objects.append({"category": ds.SEMANTIC_LABELS[cls],
+                                "segmentation": [c[:, 0].tolist()],
+                                "bbox": [x, y, x + bw, y + bh]})
+        outside = rng.integers(-15, [ds.width + 15, ds.height + 15], (6, 2))
+        objects.append({"category": "stray", "segmentation": [outside.tolist()],
+                        "bbox": [0, 0, 1, 1]})
+        (tmp_path / f"frame_{idx:05d}.json").write_text(json.dumps({
+            "info": {"name": f"frame_{idx}.jpg", "width": ds.width, "height": ds.height},
+            "objects": objects}))
+    got, ref = lerf_eval.load_annotations(tmp_path), jlerf.load_annotations(tmp_path)
+    assert list(got) == list(ref) and len(got) == len(scene["frames"])
+    for frame in got:
+        assert list(got[frame]) == list(ref[frame])
+        for label, q in got[frame].items():
+            assert q["mask"].any()
             np.testing.assert_array_equal(q["mask"], ref[frame][label]["mask"])
             np.testing.assert_array_equal(q["bboxes"], ref[frame][label]["bboxes"])
 
