@@ -72,9 +72,27 @@ non-zero):
      process and in a deterministic-mode subprocess, and card against CPU;
      (f) Timers spans around (a)-(d), reported; the tools launch no blend
      kernel;
+ 10. (run after phase 5, before phase 3's SLAM is freed) the last modules,
+     on phase 3's map at full width: (a) the forward kernel's row limit `py_limit` at 152
+     and 8 rows against its plain version on the goldens and the map
+     (n_touched exact); (b) the band-parallel render on a mesh of 4 shards
+     on this card against the single-device render (images, n_touched,
+     radii, gradients of a summed loss), with the forward kernel's time per
+     band and on the whole frame; (c) the banded tracking run of the last
+     frame against tracking_run (the iteration counts equal, the loss and
+     the camera centres held to bounds set from card measurements); (d) the data-parallel mapping
+     iteration over 2 shards against mapping_iteration; (e) the
+     disentangled rasterizer (the colour pass equals the entangled render,
+     the language pass's C = 7 kernels equal their plain versions on its
+     inputs, gradients reach both geometries and the pose, launches at
+     C = 4 and C = 7); (f) the headless viewer's PNG mosaics of every camera, read
+     back, none blank; (g) a 4-frame SLAM run with a 2-shard mesh on this
+     card and use_gui: True (banded tracking, sharded mapping, the
+     viewer's frames); every path's launches counted on their own;
 then one JSON line of the disk-entry numbers, one of the language numbers,
 one of the 3D-evaluation numbers, one of the language tools' numbers, one
-of per-kernel results and, last, the ok line.
+of the multi-device numbers, one of per-kernel results and, last, the ok
+line.
 
 Imports nothing of JAX.
 """
@@ -82,6 +100,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -183,7 +202,7 @@ def phase1_build():
 def _norm_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.numel() == 0:
         return 0.0
-    a, b = a.double(), b.double()
+    a, b = a.detach().double(), b.detach().double()
     return float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
 
 
@@ -1485,6 +1504,431 @@ def phase9_language_tools(config_path: str, dev, work: Path, weights: dict):
     return out
 
 
+# Phase 10: the row limits of (a), the shards of the banded render and of
+# the mapping iteration, the viewer's frames, the short mesh + GUI run's
+# frames; the banded tracking run against tracking_run: the camera centres
+# (metres) about 3x the largest difference measured on the card, 3.4e-6 m,
+# and the final loss (relative) about 3x the 5.0e-6 measured at 1.7e-6 m
+# scaled to that pose difference (PERF.md); the iteration counts equal. At
+# the starting pose the images are equal, and so are the losses up to the
+# order of the mean's sum.
+PY_LIMITS, RENDER_SHARDS, MAP_SHARDS, MESH_FRAMES = (152, 8), 4, 2, 4
+BANDED_POSE_TOL, BANDED_LOSS_RTOL, START_LOSS_RTOL = 1e-5, 3e-5, 1e-6
+
+
+def _forward_check(geom, feat, binning, *, width, height, tile, py_limit):
+    """Forward kernel vs plain version with a row limit, on the card."""
+    from online_lang_splatting_tpu_torch.ops.raster import tiled
+
+    args = (geom, feat, binning.s_gid, binning.starts, binning.tile_counts)
+    kw = dict(width=width, height=height, tile=tile, py_limit=py_limit)
+    k, p = tiled.blend_forward(*args, **kw), tiled.blend_forward_plain(*args, **kw)
+    full = tiled.blend_forward_plain(*args, width=width, height=height, tile=tile)
+    torch.cuda.synchronize()
+    errs = {"feat_img": _norm_err(k[0], p[0]), "final_t": _norm_err(k[1], p[1]),
+            "n_contrib": int((k[2] != p[2]).sum()), "n_touched": int((k[3] != p[3]).sum())}
+    return errs, int(p[3].sum()), int(full[3].sum())
+
+
+def _path_counts(tiled, where: str, backward: bool = True, **extra) -> dict:
+    """The launch counts of a path just driven (every plain count 0)."""
+    counts = _launch_counts(tiled)
+    if counts["fwd_launches"] == 0 or (backward and counts["bwd_launches"] == 0):
+        raise AssertionError(f"{where}: a blend kernel was never launched: {counts}")
+    if counts["fwd_plain"] or counts["bwd_plain"]:
+        raise AssertionError(f"{where}: a plain blend ran: {counts}")
+    return dict(counts, **extra)
+
+
+def _reset(tiled):
+    tiled.FWD_STATS.reset()
+    tiled.BWD_STATS.reset()
+
+
+def _png_ok(path: Path, height: int, min_width: int) -> dict:
+    from PIL import Image
+
+    img = np.asarray(Image.open(path))
+    ok = img.shape[0] == height and img.shape[1] >= min_width and float(img.std()) > 5
+    return {"shape": list(img.shape), "std": float(img.std()), "ok": bool(ok)}
+
+
+def phase10_multi_device(slam, dev, config_path: str, work: Path):
+    """The last modules on phase 3's map at full width: (a) the forward
+    kernel's row limit against its plain version; (b) the banded render on
+    a mesh of 4 shards on this card against the single-device render; (c)
+    the banded tracking run of one frame against tracking_run; (d) the
+    data-parallel mapping iteration over 2 shards against mapping_iteration
+    on the last window; (e) the disentangled rasterizer; (f) the headless
+    viewer's PNG mosaics; (g) a short SLAM run with a 2-shard mesh and
+    use_gui: True."""
+    from unittest import mock
+
+    from online_lang_splatting_tpu_torch.gui.viewer import GaussianPacket, HeadlessViewer
+    from online_lang_splatting_tpu_torch.ops.raster import api, kernels, scenes, tiled
+    from online_lang_splatting_tpu_torch.ops.raster.disentangled import rasterize_disentangled
+    from online_lang_splatting_tpu_torch.parallel import mesh as mesh_mod
+    from online_lang_splatting_tpu_torch.parallel import tile_shard
+    from online_lang_splatting_tpu_torch.slam import backend as backend_mod
+    from online_lang_splatting_tpu_torch.slam.camera import Camera
+    from online_lang_splatting_tpu_torch.slam.config import load_config
+    from online_lang_splatting_tpu_torch.slam.frontend import tracking_run
+    from online_lang_splatting_tpu_torch.slam.renderer import activate, render
+    from online_lang_splatting_tpu_torch.slam.system import SLAM
+
+    out: dict = {"launches": {}}
+    t_phase = time.time()
+    s, fe, be = slam.settings, slam.frontend, slam.backend
+    w, h, tile = s.image_width, s.image_height, s.tile
+    proj = slam.proj
+    inputs = activate(be.params, be.aux.active)
+    inputs = inputs._replace(**{k: v.detach() for k, v in inputs._asdict().items()})
+    last = max(fe.cameras)
+
+    def camera(idx):
+        cam = Camera.from_dataset(slam.dataset, idx, dev)
+        cam.compute_grad_mask(slam.config)
+        cam.update_rt(fe.cameras[idx].r, fe.cameras[idx].t)
+        return cam
+
+    view = torch.as_tensor(fe.cameras[last].world_view_transform, device=dev)
+
+    # (a) The row limit: kernel vs plain on the goldens and on the map.
+    worst: dict = {}
+    for g_tile in (16, 32):
+        for name in sorted(scenes.SCENES):
+            sc = scenes.SCENES[name]()
+            tt = {k: torch.as_tensor(v, device=dev) for k, v in sc.items()
+                  if isinstance(v, np.ndarray)}
+            st = api.RasterSettings(image_height=sc["height"], image_width=sc["width"],
+                                    tanfovx=sc["tanfovx"], tanfovy=sc["tanfovy"],
+                                    sh_degree=0, tile=g_tile)
+            prep = api.project(tt["means3d"], tt["opacities"], tt["scales"], tt["quats"],
+                               viewmatrix=tt["viewmatrix"], projmatrix=tt["projmatrix"],
+                               settings=st, shs=tt["shs"])
+            geom, feat, binning = tiled.blend_inputs(prep, tt["language_features"],
+                                                     width=sc["width"], height=sc["height"],
+                                                     tile=g_tile)
+            for lim in PY_LIMITS:
+                errs, _, _ = _forward_check(geom, feat, binning, width=sc["width"],
+                                            height=sc["height"], tile=g_tile, py_limit=lim)
+                _check(errs, f"phase10 (a) tile{g_tile}/{name}/py_limit {lim}")
+                for k, v in errs.items():
+                    worst[k] = max(worst.get(k, 0), v)
+    map_rows = {}
+    with torch.no_grad():
+        prep = api.project(inputs.xyz, inputs.opacity, inputs.scales, inputs.quats,
+                           viewmatrix=view, projmatrix=proj, settings=s, shs=inputs.shs)
+        for f_lang in (15, 0):
+            geom, feat, binning = tiled.blend_inputs(prep, inputs.language[:, :f_lang],
+                                                     width=w, height=h, tile=tile)
+            for lim in PY_LIMITS:
+                errs, touched, touched_full = _forward_check(
+                    geom, feat, binning, width=w, height=h, tile=tile, py_limit=lim)
+                _check(errs, f"phase10 (a) map F{f_lang} py_limit {lim}")
+                if not (0 < touched < touched_full or 0 < touched == touched_full and lim >= h):
+                    raise AssertionError(f"phase10 (a): n_touched {touched} of {touched_full} "
+                                         f"at py_limit {lim}")
+                map_rows[f"F{f_lang}_limit{lim}"] = dict(errs, touched=touched,
+                                                         touched_full=touched_full)
+    out["py_limit"] = {"goldens_worst": worst, "map": map_rows}
+    print(f"[phase10] (a) py_limit {list(PY_LIMITS)}: kernel vs plain forward, 10 golden "
+          f"scenes x 2 limits worst " + json.dumps(worst) + "; the map at "
+          f"{w}x{h}, tile {tile}: " + json.dumps(map_rows))
+
+    # (b) The banded render on RENDER_SHARDS shards of this card.
+    mesh4 = mesh_mod.named_mesh([dev] * RENDER_SHARDS)
+    _, band_h, padded_h = tile_shard.band_layout(h, tile, RENDER_SHARDS)
+    limits = [min(max(h - k * band_h, 0), band_h) for k in range(RENDER_SHARDS)]
+    banded = tile_shard.make_banded_render(mesh4, s)
+    leaves = [inputs.xyz.clone().requires_grad_(True),
+              inputs.opacity.clone().requires_grad_(True),
+              inputs.language.clone().requires_grad_(True)]
+
+    def summed(o):
+        return o.color.sum() + o.language.sum() + 0.1 * o.depth.sum()
+
+    def leaf_inputs():
+        return inputs._replace(xyz=leaves[0], opacity=leaves[1], language=leaves[2])
+
+    _reset(tiled)
+    got = banded(leaf_inputs(), view, proj)
+    g_band = torch.autograd.grad(summed(got), leaves)
+    torch.cuda.synchronize()
+    out["launches"]["banded_render"] = _path_counts(tiled, "phase10 (b) banded render")
+    ref = render(leaf_inputs(), view, proj, s)
+    g_ref = torch.autograd.grad(summed(ref), leaves)
+    errs = {k: _norm_err(getattr(got, k), getattr(ref, k))
+            for k in ("color", "language", "depth", "opacity", "final_t")}
+    errs.update(n_touched=int((got.n_touched != ref.n_touched).sum()),
+                radii=int((got.radii != ref.radii).sum()))
+    errs.update({f"d_{k}": _norm_err(a, b)
+                 for k, a, b in zip(("xyz", "opacity", "language"), g_band, g_ref)})
+    _check(errs, "phase10 (b) banded render vs single device")
+    # The forward kernel alone per band (its own binning, its row limit)
+    # and on the whole frame: launches back to back into preallocated
+    # buffers, as phase 4 times it.
+    def fwd_device_ms(prep_, height, py_limit):
+        geom, feat, binning = tiled.blend_inputs(prep_, inputs.language, width=w,
+                                                 height=height, tile=tile)
+        c = feat.shape[1]
+        bufs = (torch.empty((c, height, w), device=dev), torch.empty((height, w), device=dev),
+                torch.empty((height, w), dtype=torch.int32, device=dev),
+                torch.zeros(geom.shape[0], dtype=torch.int32, device=dev))
+        return _time_back_to_back(lambda: kernels.launch_forward(
+            geom, feat, binning.s_gid, binning.starts, binning.tile_counts, *bufs,
+            channels=c, width=w, height=height, tile=tile, stats=True,
+            py_limit=py_limit), 50)
+
+    with torch.no_grad():
+        prep = api.project(inputs.xyz, inputs.opacity, inputs.scales, inputs.quats,
+                           viewmatrix=view, projmatrix=proj, settings=s, shs=inputs.shs)
+        band_ms = [fwd_device_ms(tile_shard.crop_band(prep, k * band_h, band_h=band_h,
+                                                      tile=tile), band_h, limits[k])
+                   for k in range(RENDER_SHARDS)]
+        frame_ms = fwd_device_ms(prep, h, h)
+    out["banded_render"] = dict(errs, shards=RENDER_SHARDS, band_h=band_h, padded_h=padded_h,
+                                py_limits=limits, band_fwd_ms=band_ms,
+                                band_fwd_sum_ms=float(sum(band_ms)), frame_fwd_ms=frame_ms)
+    print(f"[phase10] (b) banded render, {RENDER_SHARDS} shards on {dev} (bands of {band_h} "
+          f"rows, padded {padded_h}, row limits {limits}) vs single device: "
+          + json.dumps(errs) + f"; launches {json.dumps(out['launches']['banded_render'])}")
+    print(f"[phase10] (b) forward kernel alone (C = {inputs.language.shape[1] + 4}, launches back "
+          f"to back): per band "
+          + ", ".join(f"{v:.4f}" for v in band_ms) + f" ms, sum {sum(band_ms):.4f} ms; "
+          f"whole frame {frame_ms:.4f} ms")
+
+    # (c) The banded tracking run of the last frame from the previous
+    # frame's pose, against tracking_run.
+    cam, prev = camera(last), fe.cameras[last - 1]
+    view0 = torch.as_tensor(prev.world_view_transform, device=dev)
+    lrs = (fe.lr_trans, fe.lr_rot, 0.01)
+    kw = dict(max_iters=fe.tracking_itr_num, rgb_threshold=fe.rgb_boundary_threshold)
+    track_args = (inputs, view0, proj, cam.image, cam.depth_dev, cam.grad_mask, 0.0, 0.0, lrs)
+    _reset(tiled)
+    t0 = time.time()
+    b = tile_shard.make_banded_tracking_run(mesh4, s, **kw)(*track_args)
+    torch.cuda.synchronize()
+    banded_s = time.time() - t0
+    out["launches"]["banded_tracking"] = _path_counts(tiled, "phase10 (c) banded tracking")
+    t0 = time.time()
+    r = tracking_run(*track_args, settings=s, **kw)
+    torch.cuda.synchronize()
+    single_s = time.time() - t0
+    # One iteration: the loss at the starting pose, where the banded and the
+    # single-device images are equal, so the two losses are too.
+    kw1 = dict(kw, max_iters=1)
+    start_loss = [float(tile_shard.make_banded_tracking_run(mesh4, s, **kw1)(*track_args)[4]),
+                  float(tracking_run(*track_args, settings=s, **kw1)[4])]
+    start_rdiff = abs(start_loss[0] - start_loss[1]) / abs(start_loss[1])
+
+    def centre(v):
+        v = v.detach().cpu().double()
+        return -v[:3, :3].T @ v[:3, 3]
+
+    pose_diff = float(torch.linalg.norm(centre(b[0]) - centre(r[0])))
+    loss_rdiff = abs(float(b[4]) - float(r[4])) / abs(float(r[4]))
+    gt_c = -cam.r_gt.T @ cam.t_gt
+    errs_gt = [float(np.linalg.norm(centre(v).numpy() - gt_c)) for v in (b[0], r[0])]
+    out["banded_tracking"] = dict(
+        pose_diff_m=pose_diff, pose_tol_m=BANDED_POSE_TOL, iters=[b[3], r[3]],
+        loss=[float(b[4]), float(r[4])], loss_rdiff=loss_rdiff,
+        loss_rtol=BANDED_LOSS_RTOL, start_loss=start_loss, start_loss_rdiff=start_rdiff,
+        median_depth=[float(b[5]), float(r[5])],
+        visibility_diff=int((b[6] != r[6]).sum()), err_to_gt_m=errs_gt,
+        banded_s=banded_s, single_s=single_s)
+    print(f"[phase10] (c) banded tracking of frame {last} ({RENDER_SHARDS} shards) vs "
+          f"tracking_run: camera centres {pose_diff:.3e} m apart (bound {BANDED_POSE_TOL}); "
+          f"iterations {b[3]} / {r[3]}; loss {float(b[4])!r} / {float(r[4])!r}, relative "
+          f"{loss_rdiff:.3e} (bound {BANDED_LOSS_RTOL}); at the starting pose "
+          f"{start_loss[0]!r} / {start_loss[1]!r}, relative {start_rdiff:.3e} (bound "
+          f"{START_LOSS_RTOL}); to GT {errs_gt[0]:.5f} / {errs_gt[1]:.5f} m; visibility differs at "
+          f"{out['banded_tracking']['visibility_diff']}; {banded_s:.2f} / {single_s:.2f} s")
+
+    # (d) The data-parallel mapping iteration over MAP_SHARDS shards on the
+    # last window (with the pool's or the window's keyframes as the random
+    # picks, so every shard holds a live slot).
+    window = list(fe.current_window)
+    n_slots = be._n_slots()
+    pool = [i for i in be.viewpoints if i not in window]
+    picks = (pool or window)[:2]
+    cams = [be.viewpoints[i] for i in window]
+    f32 = dict(dtype=torch.float32, device=dev)
+    win = (torch.as_tensor(np.stack([c.r for c in cams]), **f32),
+           torch.as_tensor(np.stack([c.t for c in cams]), **f32),
+           torch.tensor([c.exposure_a for c in cams], **f32),
+           torch.tensor([c.exposure_b for c in cams], **f32))
+    slots = be.slot_inputs(window, picks, n_slots, win, lang_run=True)
+    pose_opt = np.zeros(n_slots, bool)
+    pose_opt[:min(be.pose_window, len(window))] = [c.uid != 0 for c in cams[:be.pose_window]]
+    exp_opt = torch.zeros(n_slots, dtype=torch.bool, device=dev)
+    exp_opt[:len(window)] = True
+    z3, zs = torch.zeros((n_slots, 3), **f32), torch.zeros(n_slots, **f32)
+    map_args = (be.params, be.opt, be.aux, proj, *slots[:4], (z3, z3, zs, zs),
+                (z3, z3, zs, zs), zs, *slots[4:], pose_opt, exp_opt,
+                be._lrs(float(be.iteration_count + 1)), be.lamda_lang)
+    mesh2 = mesh_mod.named_mesh([dev] * MAP_SHARDS)
+    _reset(tiled)
+    got = mesh_mod.dp_mapping_iteration(s, mesh2, n_slots, False)(*map_args)
+    torch.cuda.synchronize()
+    out["launches"]["dp_mapping"] = _path_counts(tiled, "phase10 (d) dp mapping")
+    ref = backend_mod.mapping_iteration(*map_args, settings=s, init_mode=False)
+    errs = {}
+    for name, a, b_ in (("params", got[0], ref[0]), ("mu", got[1].mu, ref[1].mu),
+                        ("nu", got[1].nu, ref[1].nu)):
+        for f, x, y in zip(a._fields, a, b_):
+            errs[f"d_{name}.{f}"] = _norm_err(x, y)
+    for f in ("max_radii2d", "xyz_grad_accum", "denom"):
+        errs[f"d_aux.{f}"] = _norm_err(getattr(got[2], f), getattr(ref[2], f))
+    errs.update({f"d_slot_{k}": _norm_err(got[i], ref[i])
+                 for i, k in ((3, "r"), (4, "t"), (5, "ea"), (6, "eb"))})
+    errs["loss"] = abs(float(got[9]) - float(ref[9])) / max(abs(float(ref[9])), 1.0)
+    errs["n_touched"] = int((got[8] != ref[8]).sum())  # occ_vis
+    _check(errs, "phase10 (d) dp mapping vs mapping_iteration")
+    ids = window + [None] * (n_slots - 2 - len(window)) + picks + [None] * (2 - len(picks))
+    shard_ids = [[i for i in ids[sl] if i is not None]
+                 for sl in mesh_mod.shard_slices(n_slots, mesh2)]
+    out["dp_mapping"] = dict(shards=MAP_SHARDS, slots=n_slots, slot_ids=shard_ids,
+                             worst=max(v for k, v in errs.items() if k.startswith("d_")),
+                             loss=float(ref[9]), errs=errs)
+    print(f"[phase10] (d) dp_mapping_iteration, {MAP_SHARDS} shards, slots per shard "
+          f"{shard_ids}: worst normalized {out['dp_mapping']['worst']:.3e} (tol {GRAD_TOL}), "
+          f"loss {float(got[9]):.6f} / {float(ref[9]):.6f}, occ_vis equal; launches "
+          + json.dumps(out["launches"]["dp_mapping"]))
+
+    # (e) The disentangled rasterizer: the map's geometry for colour, a
+    # second geometry for 3 language channels (C = 4 and C = 7).
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p = inputs.xyz.shape[0]
+    q_lang = torch.nn.functional.normalize(
+        inputs.quats + 0.3 * torch.randn((p, 4), generator=gen, device=dev), dim=-1)
+    geo = dict(opacities=inputs.opacity.clone().requires_grad_(True),
+               opacities_lang=(inputs.opacity * 0.8).requires_grad_(True),
+               scales_lang=(inputs.scales * 1.5).requires_grad_(True))
+    rho = torch.zeros(3, device=dev, requires_grad=True)
+    _reset(tiled)
+    d_out = rasterize_disentangled(
+        inputs.xyz, geo["opacities"], inputs.scales, inputs.quats, geo["opacities_lang"],
+        geo["scales_lang"], q_lang, viewmatrix=view, projmatrix=proj, settings=s,
+        shs=inputs.shs, language_features=inputs.language[:, :3].contiguous(),
+        cam_trans_delta=rho)
+    d_grads = torch.autograd.grad(d_out.color.sum() + d_out.language.sum(),
+                                  [*geo.values(), rho])
+    torch.cuda.synchronize()
+    counts = _path_counts(tiled, "phase10 (e) disentangled")
+    out["launches"]["disentangled"] = counts
+    for key in ("fwd", "bwd"):
+        if set(counts[f"{key}_by_channels"]) != {4, 7}:
+            raise AssertionError(f"phase10 (e): {key} launches by C {counts[f'{key}_by_channels']}")
+    with torch.no_grad():
+        ent = render(inputs._replace(language=inputs.language[:, :0]), view, proj, s)
+    errs = {"color": _norm_err(d_out.color, ent.color), "depth": _norm_err(d_out.depth, ent.depth),
+            "radii": int((d_out.radii != ent.radii).sum())}
+    _check(errs, "phase10 (e) disentangled colour pass vs the entangled render")
+    grad_max = {k: float(g.abs().max()) for k, g in zip([*geo, "rho"], d_grads)}
+    if not all(np.isfinite(v) and v > 0 for v in grad_max.values()):
+        raise AssertionError(f"phase10 (e): gradients {grad_max}")
+    lang_t = float((d_out.final_t - d_out.final_t_lang).detach().abs().max())
+    # The language pass's kernels (C = 7) against their plain versions on
+    # that pass's blend inputs: the language geometry, zero colours, the
+    # 3 language channels.
+    with torch.no_grad():
+        prep = api.project(inputs.xyz, geo["opacities_lang"], geo["scales_lang"], q_lang,
+                           viewmatrix=view, projmatrix=proj, settings=s,
+                           colors_precomp=torch.zeros((p, 3), device=dev))
+        geom, feat, binning = tiled.blend_inputs(prep, inputs.language[:, :3].contiguous(),
+                                                 width=w, height=h, tile=tile)
+    g_feat = torch.randn((feat.shape[1], h, w), generator=gen, device=dev)
+    g_t = torch.randn((h, w), generator=gen, device=dev)
+    lang_errs, lang_abs, lang_abs_b = _compare_blend(geom, feat, binning, g_feat, g_t,
+                                                     width=w, height=h, tile=tile, stats=True)
+    _check(lang_errs, f"phase10 (e) language pass (C = {feat.shape[1]}) kernels vs plain")
+    out["disentangled"] = dict(errs, grad_max=grad_max, final_t_gap=lang_t,
+                               lang_channels=feat.shape[1], lang_kernel_vs_plain=lang_errs,
+                               lang_max_abs_err=[lang_abs, lang_abs_b])
+    print(f"[phase10] (e) rasterize_disentangled: colour pass vs entangled " + json.dumps(errs)
+          + f"; |final_t - final_t_lang| max {lang_t:.4f}; gradient max " + json.dumps(grad_max)
+          + f"; launches by C fwd {counts['fwd_by_channels']} bwd {counts['bwd_by_channels']}")
+    print(f"[phase10] (e) language pass kernels (C = {feat.shape[1]}) vs plain: "
+          + json.dumps(lang_errs) + f"; max abs fwd {lang_abs:.3e} bwd {lang_abs_b:.3e}")
+
+    # (f) The headless viewer on the map and every camera of phase 3.
+    tmp = work / "phase10"
+    viewer = HeadlessViewer(str(tmp / "viewer"), every=1)
+    kf_poses = [be.viewpoints[i].world_view_transform for i in window]
+    _reset(tiled)
+    t0 = time.time()
+    for idx in sorted(fe.cameras):
+        c = camera(idx)
+        viewer.submit(GaussianPacket(
+            render_inputs=inputs, view=c.world_view_transform, proj=proj, settings=s,
+            gtcolor=c.image, gtdepth=c.depth, gtlanguage=be.frame_stack.lang(window[0]),
+            frame_idx=idx, keyframe_window=window, keyframe_poses=kf_poses))
+        png = tmp / "viewer" / f"frame_{idx:05d}.png"
+        while not png.exists() and time.time() - t0 < 120:
+            time.sleep(0.05)
+    viewer.close()
+    viewer_s = time.time() - t0
+    if viewer._thread.is_alive():
+        raise AssertionError("phase10 (f): the viewer's thread outlived close()")
+    out["launches"]["viewer"] = _path_counts(tiled, "phase10 (f) viewer", backward=False)
+    pngs = {p.name: _png_ok(p, h, 5 * w) for p in sorted((tmp / "viewer").iterdir())}
+    if len(pngs) != len(fe.cameras) or not all(v["ok"] for v in pngs.values()):
+        raise AssertionError(f"phase10 (f): viewer frames {pngs}")
+    out["viewer"] = dict(frames=len(pngs), shape=next(iter(pngs.values()))["shape"],
+                         seconds=viewer_s)
+    print(f"[phase10] (f) HeadlessViewer: {len(pngs)} PNG mosaics "
+          f"{out['viewer']['shape']} written and read back in {viewer_s:.2f} s, none blank; "
+          f"launches " + json.dumps(out["launches"]["viewer"]))
+
+    # (g) A short SLAM run with a MAP_SHARDS-shard mesh on this card and the
+    # viewer on.
+    cfg = load_config(config_path)
+    cfg["Results"]["use_gui"] = True
+    _reset(tiled)
+    t0 = time.time()
+    run = SLAM(cfg, device=dev, save_dir=tmp / "slam", mesh=mesh2)
+    run.viewer.every = 1
+    sharded_fn = run.backend.slot_grads is not backend_mod.scan_slot_grads
+    with mock.patch.object(tile_shard, "_band_blend", wraps=tile_shard._band_blend) as bands, \
+            mock.patch.object(run.backend, "slot_grads",
+                              wraps=run.backend.slot_grads) as sharded:
+        run.run(max_frames=MESH_FRAMES)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    out["launches"]["slam_mesh_gui"] = _path_counts(tiled, "phase10 (g) SLAM with a mesh")
+    band_idx = sorted({c.args[4] for c in bands.call_args_list})
+    frames = {p.name: _png_ok(p, h, 5 * w) for p in sorted((tmp / "slam" / "viewer").iterdir())}
+    errs_gt = [float(np.linalg.norm(-c.r.T @ c.t + c.r_gt.T @ c.t_gt))
+               for c in run.frontend.cameras.values()]
+    out["slam_mesh_gui"] = dict(frames=MESH_FRAMES, seconds=run_s, fps=run.fps,
+                                phase_times=run.phase_times, band_renders=bands.call_count,
+                                bands=band_idx, sharded_iterations=sharded.call_count,
+                                slots=run.backend._n_slots(True), viewer_frames=frames,
+                                max_trans_err=max(errs_gt),
+                                track_iters=run.frontend.track_iters)
+    print(f"[phase10] (g) SLAM on {config_path}, {MESH_FRAMES} frames, mesh of {MAP_SHARDS} "
+          f"on {dev}, use_gui True: {run_s:.2f} s, FPS {run.fps:.4f}; band renders "
+          f"{bands.call_count} over bands {band_idx}; sharded mapping iterations "
+          f"{sharded.call_count}; tracking iters {run.frontend.track_iters}; max translation "
+          f"error {max(errs_gt):.5f} m; viewer frames " + json.dumps(frames))
+    failed = [name for name, ok in (
+        ("banded tracking pose", pose_diff <= BANDED_POSE_TOL),
+        ("banded tracking iterations", b[3] == r[3]),
+        ("banded tracking loss", loss_rdiff <= BANDED_LOSS_RTOL),
+        ("banded loss at the starting pose", start_rdiff <= START_LOSS_RTOL),
+        ("band renders", band_idx == list(range(MAP_SHARDS))),
+        ("sharded mapping", sharded_fn
+         and sharded.call_count >= cfg["Training"]["init_itr_num"]),
+        ("viewer frames", len(frames) == MESH_FRAMES - 1 and all(v["ok"] for v in frames.values())),
+        ("translation error", max(errs_gt) < GATE_TRANS_ERR)) if not ok]
+    out["wall_s"] = time.time() - t_phase
+    print(f"[phase10] wall {out['wall_s']:.2f} s")
+    if failed:
+        raise AssertionError(f"phase10 checks failed: {failed}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=8)
@@ -1502,7 +1946,12 @@ def main(argv=None):
     slam, counts, main_path = phase3_main_path(args.config, args.frames, dev)
     times = phase4_times(slam, dev, build)
     extractor = phase5_extractor(slam, dev)
+    # Phase 10 reads phase 3's SLAM, which goes before phase 6, so that
+    # phase 8's peak memory does not hold it.
+    with tempfile.TemporaryDirectory() as work:
+        multi = phase10_multi_device(slam, dev, args.config, Path(work))
     del slam
+    gc.collect()
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
         miou, miou_extractor = phase6_miou(args.config, dev, work)
@@ -1526,7 +1975,11 @@ def main(argv=None):
                    **{f"phase6_miou_stage{st}": miou[f"stage{st}"]["launches"][f"{key}_launches"]
                       for st in (2, 1)},
                    "phase7_eval_run": disk["launches"][f"{key}_launches"],
-                   "phase8_semantic_3d": semantic["launches"][f"{key}_launches"]},
+                   "phase8_semantic_3d": semantic["launches"][f"{key}_launches"],
+                   **{f"phase10_{path}": c[f"{key}_launches"]
+                      for path, c in multi["launches"].items()}},
+               "phase10_disentangled_by_channels":
+                   multi["launches"]["disentangled"][f"{key}_by_channels"],
                "max_abs_err": r15[f"{key}_abs_err"],
                "channels": r15["channels"],
                # ms: one wrapper call with the host's enqueue, timed on its
@@ -1553,6 +2006,7 @@ def main(argv=None):
                                    "extractor": extractor, "miou": miou}}, default=float))
     print(json.dumps({"semantic_3d": dict(semantic, card=smi)}, default=float))
     print(json.dumps({"language_tools": dict(tools, card=smi)}, default=float))
+    print(json.dumps({"multi_device": dict(multi, card=smi)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@
 // channels (C, H, W), final T (H, W), and with `stats` the per-pixel
 // n_contrib (1-based last contributing position in the tile's instance
 // range) and the per-Gaussian n_touched (contributions with T > 0.5 on
-// in-image pixels).
+// in-image pixels of the rows py < py_limit: a band of a frame split over
+// devices renders rows past the image's last one, and counts none of them,
+// as the reference's `pix_ok` does; colour, depth and T cover every row).
 //
 // What bounds it on this card: arithmetic. Every (instance, pixel) pair a
 // live pixel evaluates costs ~15 flops (offset, power, exp, alpha, tests)
@@ -52,7 +54,8 @@ fwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
            const int* __restrict__ s_gid, const int* __restrict__ starts,
            const int* __restrict__ counts, float* __restrict__ out_feat,
            float* __restrict__ out_t, int* __restrict__ n_contrib,
-           int* __restrict__ n_touched, TileGeometry tg, int stats) {
+           int* __restrict__ n_touched, TileGeometry tg, int stats,
+           int py_limit) {
   extern __shared__ float4 smem4[];
   float* s_geom = reinterpret_cast<float*>(smem4);    // [2][BATCH][8]
   float* s_feat = s_geom + 2 * BATCH * GEOM_COLS;     // [2][BATCH * C]
@@ -67,6 +70,7 @@ fwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
   const int count = counts[quad.tile_id];
   const int lane = threadIdx.x & 31;
   const float fx = (float)px, fy = (float)py;
+  const bool counts_touched = stats && py < py_limit;
   const float4 rect = make_float4((float)quad.x0, (float)(quad.x0 + tg.quad - 1),
                                   (float)quad.y0, (float)(quad.y0 + tg.quad - 1));
   bool live = in_img;
@@ -120,7 +124,7 @@ fwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
               for (int c = 0; c < C; ++c) acc[c] = __fmaf_rn(w, bf[j * C + c], acc[c]);
               T = test_t;
               last = b0 + j + 1;
-              touched = test_t > N_TOUCHED_T ? 1 : 0;
+              touched = counts_touched && test_t > N_TOUCHED_T ? 1 : 0;
             }
           }
         }
@@ -157,10 +161,10 @@ static cudaError_t launch_fwd(cudaStream_t s, const float* geom,
                               const int* starts, const int* counts,
                               float* out_feat, float* out_t, int* n_contrib,
                               int* n_touched, const TileGeometry& tg,
-                              int stats) {
+                              int stats, int py_limit) {
   return launch(fwd_kernel<C>, num_ctas(tg), fwd_smem<C>(), s, geom, feat,
                 s_gid, starts, counts, out_feat, out_t, n_contrib, n_touched,
-                tg, stats);
+                tg, stats, py_limit);
 }
 
 }  // namespace blend
@@ -173,7 +177,7 @@ extern "C" int blend_fwd(const float* geom, const float* feat,
                          const int* counts, float* out_feat, float* out_t,
                          int* n_contrib, int* n_touched, int channels,
                          int width, int height, int tile, int stats,
-                         void* stream) {
+                         int py_limit, void* stream) {
   using namespace blend;
   TileGeometry tg;
   if (!make_geometry(width, height, tile, &tg)) return (int)cudaErrorInvalidValue;
@@ -182,15 +186,15 @@ extern "C" int blend_fwd(const float* geom, const float* feat,
   switch (channels) {
     case 4:
       err = launch_fwd<4>(s, geom, feat, s_gid, starts, counts, out_feat, out_t,
-                          n_contrib, n_touched, tg, stats);
+                          n_contrib, n_touched, tg, stats, py_limit);
       break;
     case 7:
       err = launch_fwd<7>(s, geom, feat, s_gid, starts, counts, out_feat, out_t,
-                          n_contrib, n_touched, tg, stats);
+                          n_contrib, n_touched, tg, stats, py_limit);
       break;
     case 19:
       err = launch_fwd<19>(s, geom, feat, s_gid, starts, counts, out_feat, out_t,
-                           n_contrib, n_touched, tg, stats);
+                           n_contrib, n_touched, tg, stats, py_limit);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -40,7 +40,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointer (or the stream) is c_void_p, an int c_int. Without them ctypes
 # would pass every Python int as a 32-bit int and cut the pointers.
 ARGTYPES = {
-    "blend_fwd": [_P] * 9 + [_I] * 5 + [_P],
+    "blend_fwd": [_P] * 9 + [_I] * 6 + [_P],
     "blend_bwd": [_P] * 10 + [_I] * 4 + [_P],
     "blend_fwd_occupancy": [_I, _P],
     "blend_bwd_occupancy": [_I, _P],
@@ -159,13 +159,18 @@ def _raise_on(err: int, name: str):
 
 def launch_forward(geom, feat, s_gid, starts, tile_counts, feat_img, final_t,
                    n_contrib, n_touched, *, channels: int, width: int,
-                   height: int, tile: int, stats: bool):
+                   height: int, tile: int, stats: bool, py_limit: int | None = None):
+    """The forward kernel; n_touched counts the rows py < `py_limit`
+    (default: all `height` rows)."""
     lib = library()
-    err = lib.blend_fwd(
-        geom.data_ptr(), feat.data_ptr(), s_gid.data_ptr(), starts.data_ptr(),
-        tile_counts.data_ptr(), feat_img.data_ptr(), final_t.data_ptr(),
-        n_contrib.data_ptr(), n_touched.data_ptr(), channels, width, height,
-        tile, int(stats), _stream(feat))
+    # A launch goes to the thread's current device: the tensors' card (a
+    # mesh spreads renders over several cards).
+    with torch.cuda.device(feat.device):
+        err = lib.blend_fwd(
+            geom.data_ptr(), feat.data_ptr(), s_gid.data_ptr(), starts.data_ptr(),
+            tile_counts.data_ptr(), feat_img.data_ptr(), final_t.data_ptr(),
+            n_contrib.data_ptr(), n_touched.data_ptr(), channels, width, height,
+            tile, int(stats), height if py_limit is None else py_limit, _stream(feat))
     _raise_on(err, "blend_fwd launch")
 
 
@@ -173,9 +178,10 @@ def launch_backward(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
                     feat_img, final_t, d_table, *, channels: int, width: int,
                     height: int, tile: int):
     lib = library()
-    err = lib.blend_bwd(
-        geom.data_ptr(), feat.data_ptr(), s_gid.data_ptr(), starts.data_ptr(),
-        tile_counts.data_ptr(), g_feat.data_ptr(), g_t.data_ptr(),
-        feat_img.data_ptr(), final_t.data_ptr(), d_table.data_ptr(), channels,
-        width, height, tile, _stream(feat))
+    with torch.cuda.device(feat.device):
+        err = lib.blend_bwd(
+            geom.data_ptr(), feat.data_ptr(), s_gid.data_ptr(), starts.data_ptr(),
+            tile_counts.data_ptr(), g_feat.data_ptr(), g_t.data_ptr(),
+            feat_img.data_ptr(), final_t.data_ptr(), d_table.data_ptr(), channels,
+            width, height, tile, _stream(feat))
     _raise_on(err, "blend_bwd launch")

@@ -21,9 +21,12 @@ and per render: the sorted instances `s_gid` with per-tile `starts` /
 `tile_counts` (ops/raster/binning.py).
 Forward outputs: feat_img (C, H, W) accumulated channels, final_t (H, W),
 n_contrib (H, W) int32 (1-based last contributing position in the tile's
-instance range, 0 = none) and n_touched (P,) int32. `stats=False` leaves
-the last two zero. The backward takes the cotangents of feat_img and
-final_t and returns per-Gaussian d_geom (P, 6) and d_feat (P, C).
+instance range, 0 = none) and n_touched (P,) int32, which counts only the
+pixels of rows py < `py_limit` (default: the height; a band of a frame
+split over devices renders rows past the image and counts none of them).
+`stats=False` leaves the last two zero. The backward takes the cotangents
+of feat_img and final_t and returns per-Gaussian d_geom (P, 6) and d_feat
+(P, C).
 
 Images are assembled outside the autograd Function, as in the reference:
 color = acc + T·bg, language without bg, opacity = 1 - T, so the gradients
@@ -141,8 +144,10 @@ def _tile_walk(s_gid, starts_h, counts_h, tiles_x, tile, width, height,
 
 
 def blend_forward_plain(geom, feat, s_gid, starts, tile_counts, *, width: int,
-                        height: int, tile: int, stats: bool = True):
+                        height: int, tile: int, stats: bool = True,
+                        py_limit: int | None = None):
     device, dtype = feat.device, feat.dtype
+    py_limit = height if py_limit is None else py_limit
     p, c = feat.shape
     FWD_STATS.count(c, plain=True)
     tiles_x = (width + tile - 1) // tile
@@ -165,7 +170,8 @@ def blend_forward_plain(geom, feat, s_gid, starts, tile_counts, *, width: int,
                                    dtype=torch.int32)[:, None]
                 last = torch.maximum(last, torch.amax(
                     torch.where(contrib, pos, torch.zeros_like(pos)), 0))
-                touched = (contrib & (a["test_t"] > C.N_TOUCHED_T)).sum(1)
+                touched = (contrib & (a["test_t"] > C.N_TOUCHED_T)
+                           & (py < py_limit)[None, :]).sum(1)
                 n_touched.index_add_(0, ids, touched.to(torch.int32))
             t_prev, done = a["t_next"], a["done_next"]
             if bool(done.all()):
@@ -282,11 +288,12 @@ def _check_cuda_inputs(tensors: dict, channels: int, tile: int):
 
 
 def blend_forward(geom, feat, s_gid, starts, tile_counts, *, width: int,
-                  height: int, tile: int, stats: bool = True):
+                  height: int, tile: int, stats: bool = True,
+                  py_limit: int | None = None):
     if not feat.is_cuda:
         return blend_forward_plain(geom, feat, s_gid, starts, tile_counts,
                                    width=width, height=height, tile=tile,
-                                   stats=stats)
+                                   stats=stats, py_limit=py_limit)
     from . import kernels
 
     p, c = feat.shape
@@ -304,7 +311,7 @@ def blend_forward(geom, feat, s_gid, starts, tile_counts, *, width: int,
     kernels.launch_forward(
         geom, feat, s_gid, starts, tile_counts, feat_img, final_t, n_contrib,
         n_touched, channels=c, width=width, height=height, tile=tile,
-        stats=stats)
+        stats=stats, py_limit=py_limit)
     FWD_STATS.count(c, plain=False)
     return feat_img, final_t, n_contrib, n_touched
 
@@ -364,11 +371,11 @@ def blend_inputs(prep: Preprocessed, language_features, *, width: int,
 class _Blend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xy, conic, opacity, color, lang, depth, s_gid, starts,
-                tile_counts, width, height, tile, stats):
+                tile_counts, width, height, tile, stats, py_limit=None):
         geom, feat = pack_inputs(xy, conic, opacity, color, lang, depth)
         feat_img, final_t, n_contrib, n_touched = blend_forward(
             geom, feat, s_gid, starts, tile_counts, width=width,
-            height=height, tile=tile, stats=stats)
+            height=height, tile=tile, stats=stats, py_limit=py_limit)
         ctx.save_for_backward(geom, feat, s_gid, starts, tile_counts,
                               feat_img, final_t)
         ctx.meta = (width, height, tile, lang.shape[1])
@@ -386,13 +393,15 @@ class _Blend(torch.autograd.Function):
             final_t, width=width, height=height, tile=tile)
         return (d_geom[:, 0:2], d_geom[:, 2:5], d_geom[:, 5], d_feat[:, 0:3],
                 d_feat[:, 3:3 + f_lang], d_feat[:, 3 + f_lang],
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def blend_tiled(prep: Preprocessed, language_features, bg, *, width: int,
                 height: int, tile: int = C.DEFAULT_TILE,
-                stats: bool = True) -> BlendOutput:
-    """Bin → blend kernels → image assembly. Same outputs as the oracle."""
+                stats: bool = True, py_limit: int | None = None) -> BlendOutput:
+    """Bin → blend kernels → image assembly. Same outputs as the oracle.
+    `py_limit` (default `height`) bounds the rows n_touched counts; the
+    backward does not read it."""
     p = prep.xy.shape[0]
     tiles_x = (width + tile - 1) // tile
     tiles_y = (height + tile - 1) // tile
@@ -405,7 +414,7 @@ def blend_tiled(prep: Preprocessed, language_features, bg, *, width: int,
     feat_img, final_t, n_contrib, n_touched = _Blend.apply(
         prep.xy, prep.conic, prep.opacity, prep.color, lang, depth,
         binning.s_gid, binning.starts, binning.tile_counts, width, height,
-        tile, stats)
+        tile, stats, py_limit)
     return BlendOutput(
         color=feat_img[0:3] + final_t[None] * bg[:, None, None],
         language=feat_img[3:3 + f_lang],

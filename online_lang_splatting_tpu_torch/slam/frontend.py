@@ -7,11 +7,13 @@ pose/exposure Adam (0.9, 0.999, 1e-8) → SE(3) retraction, with the
 ‖tau‖ < 1e-4 exit, the optional loss-plateau exit or reduce-lr-on-plateau,
 and keep-best. The loop renders drop the language channels and skip the
 n_touched / n_contrib bookkeeping; a final render with stats gives the
-median depth and the visibility mask.
+median depth and the visibility mask. With a device mesh, `track` renders
+each frame band-parallel (parallel/tile_shard.py).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 
 from ..ops import lie
 from ..ops.raster import RasterSettings
+from ..parallel.tile_shard import banded_render
 from . import losses as L
 from .camera import Camera
 from .renderer import RenderInputs, render
@@ -28,9 +31,11 @@ def tracking_run(inputs: RenderInputs, view, proj, gt_image, gt_depth,
                  grad_mask, exposure_a, exposure_b, lrs, plateau_rtol=0.0,
                  lr_decay=1.0, *, settings: RasterSettings, max_iters: int,
                  alpha=0.95, rgb_threshold=0.01, plateau_patience: int = 5,
-                 keep_best: bool = False):
+                 keep_best: bool = False, render_fn=render):
     """Track one frame from W2C `view` (4,4). Returns (view, exposure_a,
-    exposure_b, n_iters, loss, median_depth, visibility (P,) bool)."""
+    exposure_b, n_iters, loss, median_depth, visibility (P,) bool).
+    `render_fn` takes slam.renderer.render's arguments and gives its
+    outputs (parallel.tile_shard.banded_render with a device mesh)."""
     dev = view.device
     f32 = dict(dtype=torch.float32, device=dev)
     track_inputs = inputs._replace(language=inputs.language[:, :0])
@@ -54,8 +59,8 @@ def tracking_run(inputs: RenderInputs, view, proj, gt_image, gt_depth,
         theta = torch.zeros(3, **f32).requires_grad_(True)
         ea_v = ea.clone().requires_grad_(True)
         eb_v = eb.clone().requires_grad_(True)
-        out = render(track_inputs, view, proj, loop_settings,
-                     cam_trans_delta=rho, cam_rot_delta=theta)
+        out = render_fn(track_inputs, view, proj, loop_settings,
+                        cam_trans_delta=rho, cam_rot_delta=theta)
         loss_t = L.loss_tracking_rgbd(
             out.color, out.depth, out.opacity, gt_image, gt_depth, grad_mask,
             ea_v, eb_v, alpha=alpha, rgb_boundary_threshold=rgb_threshold)
@@ -90,7 +95,7 @@ def tracking_run(inputs: RenderInputs, view, proj, gt_image, gt_depth,
     if keep_best:
         loss, view, ea, eb = best
     with torch.no_grad():
-        out = render(track_inputs, view, proj, settings)
+        out = render_fn(track_inputs, view, proj, settings)
         med = L.median_depth(out.depth, out.opacity)
     return view, ea, eb, n_iters, loss, med, out.n_touched > 0
 
@@ -101,10 +106,14 @@ def cv_extrapolate(v1: np.ndarray, v2: np.ndarray) -> np.ndarray:
 
 
 class FrontEnd:
-    def __init__(self, config: dict, settings: RasterSettings, device):
+    def __init__(self, config: dict, settings: RasterSettings, device,
+                 mesh=None):
         self.config = config
         self.settings = settings
         self.device = torch.device(device)
+        # Tracking renders band-parallel over a device mesh
+        # (parallel/tile_shard.py).
+        self.mesh = mesh
         tr = config["Training"]
         self.tracking_itr_num = tr["tracking_itr_num"]
         self.motion_model = tr.get("motion_model", "static")
@@ -146,13 +155,14 @@ class FrontEnd:
         view0 = torch.as_tensor(cam.world_view_transform, device=self.device)
         lrs = (self.lr_trans, self.lr_rot, 0.01)
         max_iters = 1 if self.use_gt_pose else self.tracking_itr_num
+        render_fn = render if self.mesh is None else partial(banded_render, self.mesh)
         view, ea, eb, n_iters, loss, med, visibility = tracking_run(
             self.render_inputs, view0, proj, cam.image, cam.depth_dev,
             cam.grad_mask, cam.exposure_a, cam.exposure_b, lrs,
             self.plateau_rtol, self.lr_decay, settings=self.settings,
             max_iters=max_iters, rgb_threshold=self.rgb_boundary_threshold,
             plateau_patience=self.plateau_patience, keep_best=self.keep_best,
-        )
+            render_fn=render_fn)
         if not self.use_gt_pose:
             v = view.cpu().numpy()
             if np.isfinite(v).all():

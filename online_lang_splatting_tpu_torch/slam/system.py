@@ -5,9 +5,14 @@ config says (`run`). `lang_extractor` (models/sed.py or the synthetic
 harness's) supervises the language channels of each keyframe, and
 `online_ae` (models/checkpoints.OnlineAETrainer) is the two-stage codec
 trained in the loop. Frames are decoded and uploaded ahead of the loop
-(slam/prefetch.py) unless `Dataset.prefetch` is false. The GUI and
-multi-device meshes are not ported (ROADMAP queue A); a config asking for
-them is refused.
+(slam/prefetch.py) unless `Dataset.prefetch` is false.
+
+`Results.use_gui: true` writes the headless viewer's PNG mosaics of the map
+(gui/viewer.py); `"interactive"` opens the open3d window (gui/slam_gui.py)
+and falls back to the headless viewer without open3d. `mesh_devices: N`
+spreads the work over the first N cards (parallel/): mapping shards the
+keyframe slots and tracking renders band-parallel; a caller may instead
+pass a `mesh` that names its devices.
 
 Threaded mode's messages (as in the JAX package and the reference):
   frontend -> backend: ["init", idx, cam, depthmap] |
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import pin_f32_matmul
+from ..gui.viewer import GaussianPacket
 from ..ops.raster import RasterSettings
 from .backend import BackEnd
 from .camera import Camera, camera_projection
@@ -42,19 +48,34 @@ from .frontend import FrontEnd
 from .renderer import activate
 
 
+class _QueueViewer:
+    """The viewer interface over the interactive GUI's packet queue."""
+
+    def __init__(self, q):
+        self.q = q
+
+    def submit(self, pkt):
+        try:
+            self.q.put_nowait(pkt)
+        except queue.Full:
+            pass
+
+    def close(self):
+        self.q.put(GaussianPacket(finish=True))
+
+
 class SLAM:
     def __init__(self, config: dict, lang_extractor=None, online_ae=None,
-                 device="cuda", save_dir: Optional[Path] = None):
+                 device="cuda", save_dir: Optional[Path] = None, mesh=None):
         pin_f32_matmul()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
-        if config.get("Results", {}).get("use_gui", False):
-            raise ValueError("Results.use_gui: the GUI is not ported to the PyTorch "
-                             "package yet (ROADMAP queue A, \"GUI\")")
-        if config.get("mesh_devices", 0):
-            raise ValueError("mesh_devices: multi-device meshes are not ported to the "
-                             "PyTorch package yet (ROADMAP queue A, \"Multi-device\")")
+        if mesh is None and config.get("mesh_devices", 0):
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(config["mesh_devices"], device=self.device)
+        self.mesh = mesh
         self.config = config
         self.save_dir = save_dir
         self.dataset = load_dataset(config)
@@ -85,14 +106,66 @@ class SLAM:
             device=self.device)
         self.backend = BackEnd(config, self.settings, self.proj, self.device,
                                capacity=config.get("capacity", 1 << 17),
-                               lang_extractor=lang_extractor, online_ae=online_ae)
-        self.frontend = FrontEnd(config, self.settings, self.device)
+                               lang_extractor=lang_extractor, online_ae=online_ae,
+                               mesh=mesh)
+        self.frontend = FrontEnd(config, self.settings, self.device, mesh=mesh)
         self.use_every_n_frames = 1
         self.kf_interval = config["Training"]["kf_interval"]
         self.single_thread = config["Training"].get("single_thread", True)
         self.fps = None
         self.phase_times: dict = {}
         self.tracked_while_kf_in_flight = 0
+        self.viewer = None
+        self.q_vis2main: queue.Queue = queue.Queue()
+        self._gui_paused = False
+        use_gui = config.get("Results", {}).get("use_gui", False)
+        if use_gui == "interactive":
+            try:
+                from ..gui import slam_gui
+
+                params = slam_gui.ParamsGUI(
+                    q_main2vis=queue.Queue(maxsize=4), q_vis2main=self.q_vis2main,
+                    proj=self.proj, settings=self.settings)
+                self._gui = slam_gui.SLAM_GUI(params)
+                threading.Thread(target=self._gui.run, daemon=True).start()
+                self.viewer = _QueueViewer(params.q_main2vis)
+            except ImportError as e:
+                print(f"[gui] {e}; using HeadlessViewer")
+                use_gui = True
+        if use_gui is True:
+            from ..gui.viewer import HeadlessViewer
+
+            self.viewer = HeadlessViewer(str(Path(save_dir or "results") / "viewer"))
+
+    def _check_gui_pause(self):
+        """Honour Packet_vis2main(flag_pause) from the interactive viewer:
+        read every message queued, then wait while paused (the reference
+        frontend's pause flow)."""
+        while True:
+            try:
+                msg = (self.q_vis2main.get(timeout=0.05) if self._gui_paused
+                       else self.q_vis2main.get_nowait())
+            except queue.Empty:
+                if self._gui_paused:
+                    continue
+                return
+            self._gui_paused = bool(getattr(msg, "flag_pause", False))
+
+    def _submit_view(self, idx: int, cam: Camera, last_kf: int, window):
+        """Hand the viewer the map, the tracked camera and the keyframe
+        window; the ground-truth language thumbnail is the latest
+        keyframe's supervision (frames between keyframes have none)."""
+        fe = self.frontend
+        kf_cam = self.backend.viewpoints.get(last_kf)
+        self.viewer.submit(GaussianPacket(
+            render_inputs=fe.render_inputs, view=cam.world_view_transform,
+            proj=self.proj, settings=self.settings, gtcolor=cam.image,
+            gtdepth=cam.depth,
+            gtlanguage=kf_cam.gt_lang_feat if kf_cam is not None else None,
+            frame_idx=idx, keyframe_window=list(window),
+            keyframe_poses=[fe.cameras[k].world_view_transform
+                            for k in window if k in fe.cameras]
+            + [cam.world_view_transform]))
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -120,7 +193,11 @@ class SLAM:
         return frames_since_kf >= self.kf_interval
 
     def close(self):
-        """Stop the prefetch threads and drop the frames they hold."""
+        """Stop the viewer and the prefetch threads and drop the frames they
+        hold."""
+        if self.viewer is not None:
+            self.viewer.close()
+            self.viewer = None
         if self._campre is not None:
             self._campre.close()
         if hasattr(self.dataset, "close"):
@@ -186,6 +263,7 @@ class SLAM:
             return now
 
         for idx in range(start_frame, n):
+            self._check_gui_pause()
             t0 = time.time()
             cam = self._camera(idx)
             fe.cameras[idx] = cam
@@ -207,6 +285,8 @@ class SLAM:
             visibility = fe.track(cam, prev, self.proj, prev2=prev2)
             t0 = tick("track", t0)
             frames_since_kf += 1
+            if self.viewer is not None:
+                self._submit_view(idx, cam, last_kf, cur_window)
             if not self._create_kf(idx, last_kf, frames_since_kf, visibility, cur_window):
                 cam.clean()
                 continue
@@ -337,6 +417,7 @@ class SLAM:
         self.tracked_while_kf_in_flight = 0
         try:
             for idx in range(n):
+                self._check_gui_pause()
                 t_frame = time.time()
                 cam = self._camera(idx)
                 fe.cameras[idx] = cam

@@ -125,15 +125,52 @@ def test_threaded_backend_error_reaches_the_main_thread(monkeypatch):
     assert not [th for th in threading.enumerate() if th.name == "slam-backend"]
 
 
-def test_unported_options_are_refused():
-    cfg = load_config(SMOKE)
+def test_use_gui_builds_the_headless_viewer(tmp_path):
+    """use_gui: True on the CPU writes the headless viewer's mosaics; the
+    interactive window needs open3d, and without it SLAM falls back to the
+    headless viewer."""
+    from online_lang_splatting_tpu_torch.gui.viewer import HeadlessViewer
+
+    cfg = _fast(load_config(SMOKE))
     cfg["Results"]["use_gui"] = True
-    with pytest.raises(ValueError, match="queue A, \"GUI\""):
-        SLAM(cfg, device="cpu")
+    slam = SLAM(cfg, device="cpu", save_dir=tmp_path)
+    assert isinstance(slam.viewer, HeadlessViewer)
+    slam.viewer.every = 1
+    slam.run(max_frames=3)
+    assert slam.viewer is None  # closed with the run
+    frames = sorted(p.name for p in (tmp_path / "viewer").iterdir())
+    assert frames == ["frame_00001.png", "frame_00002.png"]
+    png = np.asarray(Image.open(tmp_path / "viewer" / frames[-1]))
+    assert png.shape[0] == cfg["Dataset"]["Calibration"]["height"] and png.std() > 0
+    with pytest.raises(ImportError):
+        import open3d  # noqa: F401
+    cfg["Results"]["use_gui"] = "interactive"
+    slam = SLAM(cfg, device="cpu", save_dir=tmp_path / "interactive")
+    assert isinstance(slam.viewer, HeadlessViewer)
+    slam.close()
+
+
+def test_mesh_devices_needs_as_many_cards(monkeypatch):
+    """make_mesh(n) takes the first n cards and raises when fewer exist: a
+    repeated device never stands in for a missing card."""
+    from online_lang_splatting_tpu_torch.parallel.mesh import make_mesh, named_mesh
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    mesh = make_mesh(2)
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert make_mesh().size == 2
+    with pytest.raises(ValueError, match="4 cuda devices was asked for, 2 exist"):
+        make_mesh(4)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="1 cuda devices was asked for, 0 exist"):
+        make_mesh(1)
+    with pytest.raises(ValueError, match="2 cpu devices"):
+        make_mesh(2, device="cpu")
     cfg = load_config(SMOKE)
-    cfg["mesh_devices"] = 4
-    with pytest.raises(ValueError, match="queue A, \"Multi-device\""):
+    cfg["mesh_devices"] = 2
+    with pytest.raises(ValueError, match="2 cpu devices"):
         SLAM(cfg, device="cpu")
+    assert named_mesh(["cpu"] * 3).size == 3  # named devices may repeat
 
 
 def test_kernel_stats_count_from_many_threads():
