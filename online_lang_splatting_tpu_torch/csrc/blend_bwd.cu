@@ -26,16 +26,20 @@
 //
 // What the design does about the five points that kept the first,
 // per-tile version (2.05 ms at C = 19) far from that bound:
-// 1. Occupancy: one CTA per 16x16 quadrant, one pixel per thread. The
-//    per-thread state is C cotangents + T, S, x, y, and the launch bound
-//    asks for 3 resident CTAs per SM (<= 80 registers).
-// 2. The per-instance reduction over the warp's pixels: the 6 + C values
-//    are padded to 32 (16 for C <= 10) and reduce-scattered by recursive
-//    halving, 16 + 8 + 4 + 2 + 1 = 31 shuffles (15 + 1 at 16), after which
-//    lane v holds the warp's total of value v; lanes v < 6 + C then issue
-//    one shared atomicAdd each, to distinct addresses: one instruction per
-//    warp and instance instead of 25 butterflies and 25 serialised atomics.
-//    A warp none of whose lanes contributed skips it.
+// 1. Occupancy: one CTA per 16x16 square, one pixel per thread. The
+//    per-thread state is CP cotangents + T, S, x, y, and the launch bound
+//    asks for 3 resident CTAs per SM up to CP = 20 (<= 85 registers; 80
+//    at C = 19), 2 above (<= 128).
+// 2. The per-instance reduction over the warp's pixels: the G = 6 + C
+//    values go in groups of 32, the last padded to a power of two (16 for
+//    C <= 10), each reduce-scattered by recursive halving, 16 + 8 + 4 + 2
+//    + 1 = 31 shuffles for a group of 32 (15 + 1 at 16), after which lane
+//    v holds the warp's total of the group's value v; lanes then issue one
+//    shared atomicAdd each, to distinct addresses: one instruction per warp
+//    and group instead of G butterflies and G serialised atomics. A warp
+//    none of whose lanes contributed skips it. At C = 64 that is groups of
+//    32, 32 and 8 (6 values), 31 + 31 + 9 shuffles, with one group's 32
+//    values live at a time beside the CP cotangents.
 // 3. The gather: the next batch's rows arrive by cp.async into the other
 //    half of a double buffer while the current batch is walked.
 // 4. --fmad=false keeps the alpha / T / power chain bit-identical to the
@@ -62,41 +66,81 @@
 
 namespace blend {
 
-// Reduce-scatter of NV values over a warp by recursive halving: on return,
-// v[0] of lane L holds the warp's total of value L % NV (NV = 16 folds the
-// two half warps together with one more shuffle).
+// Reduce-scatter of NV values (a power of two, at most 32) over a warp by
+// recursive halving: on return, v[0] of lane L holds the warp's total of
+// value L % NV (below 32, log2(32 / NV) more shuffles fold the lane groups
+// together).
 template <int NV, int O = NV / 2>
 __device__ __forceinline__ void reduce_scatter(float (&v)[NV], int lane) {
-  const bool hi = (lane & O) != 0;
+  if constexpr (O > 0) {
+    const bool hi = (lane & O) != 0;
 #pragma unroll
-  for (int i = 0; i < O; ++i) {
-    const float send = hi ? v[i] : v[i + O];
-    const float keep = hi ? v[i + O] : v[i];
-    v[i] = keep + __shfl_xor_sync(FULL, send, O);
+    for (int i = 0; i < O; ++i) {
+      const float send = hi ? v[i] : v[i + O];
+      const float keep = hi ? v[i + O] : v[i];
+      v[i] = keep + __shfl_xor_sync(FULL, send, O);
+    }
   }
   if constexpr (O > 1) {
     reduce_scatter<NV, O / 2>(v, lane);
-  } else if constexpr (NV == 16) {
-    v[0] += __shfl_xor_sync(FULL, v[0], 16);
+  } else {
+#pragma unroll
+    for (int s = NV; s < 32; s <<= 1) v[0] += __shfl_xor_sync(FULL, v[0], s);
   }
 }
 
-template <int C>
-constexpr size_t bwd_smem() {
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
+// One pair's values q = 0 .. 6 + CP - 1 (0-5 the geometry terms, 6 + c the
+// feature terms w * gpix[c]) in groups of 32 from Q0 on: each group
+// reduce-scattered over the warp, then lane L adds the warp's total of
+// value Q0 + L to the instance's row `s_row` when it is one of the G real
+// values and not zero.
+template <int CP, int Q0 = 0>
+__device__ __forceinline__ void reduce_values(const float (&geo)[6], float w,
+                                              bool any, const float (&gpix)[CP],
+                                              int lane, int G, float* s_row) {
+  constexpr int NQ = 6 + CP;
+  constexpr int NV = NQ - Q0 >= 32 ? 32 : pow2_at_least(NQ - Q0);
+  float v[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int q = Q0 + i;
+    if (q < 6)
+      v[i] = geo[q < 6 ? q : 0];
+    else if (q - 6 < CP)
+      v[i] = any ? w * gpix[q >= 6 && q - 6 < CP ? q - 6 : 0] : 0.f;
+    else
+      v[i] = 0.f;
+  }
+  reduce_scatter<NV>(v, lane);
+  const int q = Q0 + lane;
+  if (lane < NV && q < G && v[0] != 0.f) atomicAdd(&s_row[q], v[0]);
+  if constexpr (Q0 + 32 < NQ) reduce_values<CP, Q0 + 32>(geo, w, any, gpix, lane, G, s_row);
+}
+
+inline size_t bwd_smem(int C) {
   return sizeof(float) * (2 * BATCH * (GEOM_COLS + C) + BATCH * (6 + C)) +
          sizeof(int) * (BATCH + BLOCK / 32);
 }
 
-template <int C>
-__global__ void __launch_bounds__(BLOCK, 3)
+// Resident CTAs the launch bound asks for: CP cotangents per thread.
+__host__ __device__ constexpr int bwd_min_blocks(int cp) { return cp <= 20 ? 3 : 2; }
+
+template <int CP, bool EXACT>
+__global__ void __launch_bounds__(BLOCK, bwd_min_blocks(CP))
 bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
            const int* __restrict__ s_gid, const int* __restrict__ starts,
            const int* __restrict__ counts, const float* __restrict__ g_feat,
            const float* __restrict__ g_t, const float* __restrict__ out_feat,
            const float* __restrict__ out_t, float* __restrict__ d_table,
-           TileGeometry tg) {
-  constexpr int G = 6 + C;
-  constexpr int NV = G <= 16 ? 16 : 32;
+           TileGeometry tg, int channels) {
+  const int C = EXACT ? CP : channels;
+  const int G = 6 + C;
   extern __shared__ float4 smem4[];
   float* s_geom = reinterpret_cast<float*>(smem4);   // [2][BATCH][8]
   float* s_feat = s_geom + 2 * BATCH * GEOM_COLS;    // [2][BATCH * C]
@@ -111,26 +155,27 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
   const int count = counts[quad.tile_id];
   const int lane = threadIdx.x & 31;
   const float fx = (float)px, fy = (float)py;
-  const float4 rect = make_float4((float)quad.x0, (float)(quad.x0 + tg.quad - 1),
-                                  (float)quad.y0, (float)(quad.y0 + tg.quad - 1));
+  const float4 rect = rect_of(quad);
   const size_t hw = (size_t)tg.width * tg.height;
 
-  float T = 1.f, S = 0.f, gpix[C];
+  float T = 1.f, S = 0.f, gpix[CP];
 #pragma unroll
-  for (int c = 0; c < C; ++c) gpix[c] = 0.f;
+  for (int c = 0; c < CP; ++c) gpix[c] = 0.f;
   if (live) {
     const size_t idx = (size_t)py * tg.width + px;
     float total = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      gpix[c] = g_feat[c * hw + idx];
-      total = __fmaf_rn(gpix[c], out_feat[c * hw + idx], total);
+    for (int c = 0; c < CP; ++c) {
+      if (c < C) {
+        gpix[c] = g_feat[c * hw + idx];
+        total = __fmaf_rn(gpix[c], out_feat[c * hw + idx], total);
+      }
     }
     S = __fmaf_rn(g_t[idx], out_t[idx], total);
   }
 
   const int* ids = s_gid + start;
-  if (count > 0) load_batch<C>(geom, feat, ids, min(BATCH, count), s_geom, s_feat);
+  if (count > 0) load_batch(geom, feat, ids, min(BATCH, count), C, s_geom, s_feat);
   __pipeline_commit();
 
   int buf = 0;
@@ -140,9 +185,8 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
     if (__syncthreads_count(live) == 0) break;
     const int n = min(BATCH, count - b0);
     if (b0 + BATCH < count)
-      load_batch<C>(geom, feat, ids + b0 + BATCH, min(BATCH, count - b0 - BATCH),
-                    s_geom + (buf ^ 1) * BATCH * GEOM_COLS,
-                    s_feat + (buf ^ 1) * BATCH * C);
+      load_batch(geom, feat, ids + b0 + BATCH, min(BATCH, count - b0 - BATCH), C,
+                 s_geom + (buf ^ 1) * BATCH * GEOM_COLS, s_feat + (buf ^ 1) * BATCH * C);
     __pipeline_commit();
     __pipeline_wait_prior(1);  // this batch's group has landed
     for (int q = threadIdx.x; q < n * G; q += BLOCK) s_grad[q] = 0.f;
@@ -153,9 +197,8 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
     const int m = select_rows(bg, n, rect, s_list, s_warp_count);
     for (int k = 0; k < m; ++k) {
       const int j = s_list[k];
-      float v[NV];
-#pragma unroll
-      for (int q = 0; q < NV; ++q) v[q] = 0.f;
+      float geo[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float w = 0.f;
       bool any = false;
       if (live) {
         const float4 g0 = *reinterpret_cast<const float4*>(bg + j * GEOM_COLS);
@@ -174,25 +217,25 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
             if (test_t < T_EPS) {
               live = false;
             } else {
-              const float w = alpha * T;
+              w = alpha * T;
+              const float* row = bf + j * C;
               float gdot = 0.f;
 #pragma unroll
-              for (int c = 0; c < C; ++c) gdot = __fmaf_rn(bf[j * C + c], gpix[c], gdot);
+              for (int c = 0; c < CP; ++c)
+                if (c < C) gdot = __fmaf_rn(row[c], gpix[c], gdot);
               S = __fmaf_rn(-w, gdot, S);  // suffix: everything composited after this one
               const float dalpha = T * gdot - S / one_minus;
-#pragma unroll
-              for (int c = 0; c < C; ++c) v[6 + c] = w * gpix[c];
               if (alpha_raw < ALPHA_MAX) {
                 const float de = dalpha * expp;
                 const float dpower = de * op;
                 const float ddx = dpower * dx;
                 const float ddy = dpower * dy;
-                v[0] = -__fmaf_rn(ddx, ca, ddy * cb);
-                v[1] = -__fmaf_rn(ddy, cc, ddx * cb);
-                v[2] = -0.5f * ddx * dx;
-                v[3] = -ddx * dy;
-                v[4] = -0.5f * ddy * dy;
-                v[5] = de;
+                geo[0] = -__fmaf_rn(ddx, ca, ddy * cb);
+                geo[1] = -__fmaf_rn(ddy, cc, ddx * cb);
+                geo[2] = -0.5f * ddx * dx;
+                geo[3] = -ddx * dy;
+                geo[4] = -0.5f * ddy * dy;
+                geo[5] = de;
               }
               T = test_t;
               any = true;
@@ -200,10 +243,7 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
           }
         }
       }
-      if (__any_sync(FULL, any)) {
-        reduce_scatter<NV>(v, lane);
-        if (lane < G && v[0] != 0.f) atomicAdd(&s_grad[j * G + lane], v[0]);
-      }
+      if (__any_sync(FULL, any)) reduce_values<CP>(geo, w, any, gpix, lane, G, s_grad + j * G);
     }
 
     __syncthreads();
@@ -215,22 +255,37 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
   __pipeline_wait_prior(0);  // no copy outlives the CTA
 }
 
-template <int C>
-static cudaError_t launch_bwd(cudaStream_t s, const float* geom,
-                              const float* feat, const int* s_gid,
-                              const int* starts, const int* counts,
-                              const float* g_feat, const float* g_t,
-                              const float* out_feat, const float* out_t,
-                              float* d_table, const TileGeometry& tg) {
-  return launch(bwd_kernel<C>, num_ctas(tg), bwd_smem<C>(), s, geom, feat,
-                s_gid, starts, counts, g_feat, g_t, out_feat, out_t, d_table,
-                tg);
-}
+struct BwdLaunch {
+  cudaStream_t s;
+  const float *geom, *feat;
+  const int *s_gid, *starts, *counts;
+  const float *g_feat, *g_t, *out_feat, *out_t;
+  float* d_table;
+  TileGeometry tg;
+  int C;
+
+  template <int CP, bool EXACT>
+  cudaError_t operator()() const {
+    return launch(bwd_kernel<CP, EXACT>, num_ctas(tg), bwd_smem(C), s, geom, feat,
+                  s_gid, starts, counts, g_feat, g_t, out_feat, out_t, d_table, tg, C);
+  }
+};
+
+struct BwdOccupancy {
+  int C;
+  int* blocks;
+
+  template <int CP, bool EXACT>
+  cudaError_t operator()() const {
+    return occupancy(bwd_kernel<CP, EXACT>, bwd_smem(C), blocks);
+  }
+};
 
 }  // namespace blend
 
 // Plain C entry point for ctypes. d_table must be zeroed by the caller.
-// Returns the launch's error code, then cudaGetLastError().
+// Returns the launch's error code, then cudaGetLastError()
+// (cudaErrorInvalidValue for a channel count outside 4..64 or a tile < 1).
 extern "C" int blend_bwd(const float* geom, const float* feat,
                          const int* s_gid, const int* starts,
                          const int* counts, const float* g_feat,
@@ -240,24 +295,9 @@ extern "C" int blend_bwd(const float* geom, const float* feat,
   using namespace blend;
   TileGeometry tg;
   if (!make_geometry(width, height, tile, &tg)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  switch (channels) {
-    case 4:
-      err = launch_bwd<4>(s, geom, feat, s_gid, starts, counts, g_feat, g_t,
-                          out_feat, out_t, d_table, tg);
-      break;
-    case 7:
-      err = launch_bwd<7>(s, geom, feat, s_gid, starts, counts, g_feat, g_t,
-                          out_feat, out_t, d_table, tg);
-      break;
-    case 19:
-      err = launch_bwd<19>(s, geom, feat, s_gid, starts, counts, g_feat, g_t,
-                           out_feat, out_t, d_table, tg);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const BwdLaunch b{(cudaStream_t)stream, geom, feat, s_gid, starts, counts, g_feat,
+                    g_t, out_feat, out_t, d_table, tg, channels};
+  const cudaError_t err = dispatch_width(channels, b);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -266,10 +306,5 @@ extern "C" int blend_bwd(const float* geom, const float* feat,
 // diagnostics of chip_smoke.py.
 extern "C" int blend_bwd_occupancy(int channels, int* blocks) {
   using namespace blend;
-  switch (channels) {
-    case 4: return (int)occupancy(bwd_kernel<4>, bwd_smem<4>(), blocks);
-    case 7: return (int)occupancy(bwd_kernel<7>, bwd_smem<7>(), blocks);
-    case 19: return (int)occupancy(bwd_kernel<19>, bwd_smem<19>(), blocks);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch_width(channels, BwdOccupancy{channels, blocks});
 }

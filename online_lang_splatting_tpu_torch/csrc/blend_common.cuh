@@ -6,10 +6,17 @@
 // Per render: s_gid (S,) int32 Gaussian ids in (tile, depth, id) order,
 // starts / counts (T,) int32 per tile. Images are (C, H, W) / (H, W).
 //
-// Work split: one CTA of BLOCK = 256 threads owns one quadrant of a tile,
-// one pixel per thread. A quadrant is 16x16 pixels; a tile of 32 is split
-// into 2x2 quadrants (4 independent CTAs, consecutive in blockIdx.x), and a
-// tile of 16 or less is one CTA of its own.
+// Work split: one CTA of BLOCK = 256 threads owns one square of a tile,
+// one pixel per thread. A tile of 16 or less is one CTA of its own; a
+// larger tile is cut into ceil(tile / 16)^2 squares of 16x16 (independent
+// CTAs, consecutive in blockIdx.x), and the squares on the tile's right and
+// bottom edges are clipped to it when 16 does not divide the tile (a tile
+// of 24 is 2x2 CTAs of 16x16, 16x8, 8x16 and 8x8 pixels).
+//
+// Channels: C = F + 4 is a runtime value. Each kernel is compiled for a
+// padded width CP >= C (its accumulators and cotangents are CP registers,
+// those past C never read or written), and for C = 4, 7 and 19, the main
+// path's widths, also with C fixed at compile time (EXACT).
 //
 // Every CTA walks its tile's instance range in batches of BATCH rows. The
 // next batch's rows are gathered through s_gid into shared memory with
@@ -42,19 +49,18 @@ constexpr float N_TOUCHED_T = 0.5f;
 struct TileGeometry {
   int width, height, tile, tiles_x;
   int quad;  // pixels per side of a CTA's square: min(tile, QUAD)
-  int nq;    // quadrants per tile side: tile / quad (1 or 2)
+  int nq;    // squares per tile side: ceil(tile / quad)
 };
 
-// Validates the tile size and fills in the split; false when the kernels do
-// not take this tile (they take tiles of 1..16 and 32).
+// Fills in the split; false for a tile the kernels do not take (< 1).
 inline bool make_geometry(int width, int height, int tile, TileGeometry* g) {
-  if (tile <= 0 || (tile > QUAD && tile != 2 * QUAD)) return false;
+  if (tile <= 0) return false;
   g->width = width;
   g->height = height;
   g->tile = tile;
   g->tiles_x = (width + tile - 1) / tile;
   g->quad = tile < QUAD ? tile : QUAD;
-  g->nq = tile / g->quad;
+  g->nq = (tile + g->quad - 1) / g->quad;
   return true;
 }
 
@@ -63,26 +69,38 @@ inline int num_ctas(const TileGeometry& g) {
   return g.tiles_x * tiles_y * g.nq * g.nq;
 }
 
-// This CTA's tile and the top-left pixel of its square.
+// This CTA's tile, the top-left pixel of its square, and the end (one
+// past the last pixel) of its square clipped to the tile and the image.
 struct Quad {
-  int tile_id, x0, y0;
+  int tile_id, x0, y0, x1, y1;
 };
 
 __device__ __forceinline__ Quad quad_of(const TileGeometry& g) {
   const int per_tile = g.nq * g.nq;
   const int t = blockIdx.x / per_tile;
   const int q = blockIdx.x % per_tile;
-  return {t, (t % g.tiles_x) * g.tile + (q % g.nq) * g.quad,
-          (t / g.tiles_x) * g.tile + (q / g.nq) * g.quad};
+  const int tx = (t % g.tiles_x) * g.tile, ty = (t / g.tiles_x) * g.tile;
+  const int x0 = tx + (q % g.nq) * g.quad, y0 = ty + (q / g.nq) * g.quad;
+  return {t, x0, y0, min(min(x0 + g.quad, tx + g.tile), g.width),
+          min(min(y0 + g.quad, ty + g.tile), g.height)};
 }
 
-// This thread's pixel; false when it lies past the square or the image edge
-// (such pixels are inert: nothing reads them).
+// This thread's pixel; false when it lies past the square, the tile or the
+// image edge (such pixels are inert: nothing reads them). A square on the
+// edge of a tile that 16 does not divide would otherwise reach into the
+// next tile, whose instances are not in this tile's list.
 __device__ __forceinline__ bool pixel_of(const TileGeometry& g, const Quad& q,
                                          int* px, int* py) {
   *px = q.x0 + (int)threadIdx.x % g.quad;
   *py = q.y0 + (int)threadIdx.x / g.quad;
-  return (int)threadIdx.x < g.quad * g.quad && *px < g.width && *py < g.height;
+  return (int)threadIdx.x < g.quad * g.quad && *px < q.x1 && *py < q.y1;
+}
+
+// The square as a rectangle (x0, x1, y0, y1) of pixel centres, for the
+// reach-box test; empty boxes never occur (a CTA with no pixel in the
+// image exits before it tests a row).
+__device__ __forceinline__ float4 rect_of(const Quad& q) {
+  return make_float4((float)q.x0, (float)(q.x1 - 1), (float)q.y0, (float)(q.y1 - 1));
 }
 
 // The blend's per-(instance, pixel) power, in the reference's operation
@@ -155,12 +173,12 @@ __device__ __forceinline__ int select_rows(const float* s_geom, int n,
 
 // Queue the asynchronous copy of rows [b0, b0 + n) of a tile's instance
 // range into one buffer: thread i copies instance i's geom row (32 bytes)
-// and feat row (C floats). Commit is left to the caller.
-template <int C>
+// and feat row (C floats, row stride C in both places). Commit is left to
+// the caller.
 __device__ __forceinline__ void load_batch(const float* __restrict__ geom,
                                            const float* __restrict__ feat,
                                            const int* __restrict__ ids, int n,
-                                           float* s_geom, float* s_feat) {
+                                           int C, float* s_geom, float* s_feat) {
   const int i = threadIdx.x;
   if (i >= n) return;
   const size_t g = (size_t)ids[i];
@@ -170,9 +188,41 @@ __device__ __forceinline__ void load_batch(const float* __restrict__ geom,
   const float* fp = feat + g * C;
   float* dst = s_feat + i * C;
   // Rows of C floats are 16-byte aligned when C % 4 == 0, 8-byte when even.
-  constexpr int W = C % 4 == 0 ? 4 : (C % 2 == 0 ? 2 : 1);
-#pragma unroll
-  for (int c = 0; c < C; c += W) __pipeline_memcpy_async(dst + c, fp + c, 4 * W);
+  if (C % 4 == 0) {
+    for (int c = 0; c < C; c += 4) __pipeline_memcpy_async(dst + c, fp + c, 16);
+  } else if (C % 2 == 0) {
+    for (int c = 0; c < C; c += 2) __pipeline_memcpy_async(dst + c, fp + c, 8);
+  } else {
+    for (int c = 0; c < C; ++c) __pipeline_memcpy_async(dst + c, fp + c, 4);
+  }
+}
+
+// The compiled widths: a channel count C in [MIN_CHANNELS, MAX_CHANNELS]
+// runs on its EXACT instance when it has one (4, 7, 19), else on the
+// padded instance of the smallest width CP >= C. dispatch_width calls
+// f.template operator()<CP, EXACT>() for it, and returns
+// cudaErrorInvalidValue for a C outside the domain. kernels.py keeps the
+// same lists (tests/test_torch_kernel_build.py parses them from here).
+constexpr int MIN_CHANNELS = 4, MAX_CHANNELS = 64;
+
+template <typename F>
+cudaError_t dispatch_width(int C, F&& f) {
+  switch (C) {
+    case 4: return f.template operator()<4, true>();
+    case 7: return f.template operator()<7, true>();
+    case 19: return f.template operator()<19, true>();
+    default: break;
+  }
+  if (C < MIN_CHANNELS || C > MAX_CHANNELS) return cudaErrorInvalidValue;
+  if (C <= 8) return f.template operator()<8, false>();
+  if (C <= 12) return f.template operator()<12, false>();
+  if (C <= 16) return f.template operator()<16, false>();
+  if (C <= 20) return f.template operator()<20, false>();
+  if (C <= 24) return f.template operator()<24, false>();
+  if (C <= 28) return f.template operator()<28, false>();
+  if (C <= 32) return f.template operator()<32, false>();
+  if (C <= 48) return f.template operator()<48, false>();
+  return f.template operator()<64, false>();
 }
 
 // Launch on `stream` with `smem` bytes of dynamic shared memory (opted in

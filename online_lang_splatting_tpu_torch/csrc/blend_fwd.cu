@@ -23,12 +23,14 @@
 //
 // What the design does about it (the points that kept the first, per-tile
 // version of this kernel far from its bound):
-// - Occupancy and uneven work: one CTA per 16x16 quadrant, one pixel per
-//   thread, so per-thread state is C accumulators + T + the last index and
-//   3-4 CTAs fit an SM; a tile of 32 is 4 independent CTAs (4x as many,
-//   each shorter), and each quadrant stops once its own pixels have
-//   terminated. No cluster: n_touched is an integer atomic, exact in any
-//   order, and n_contrib is per pixel.
+// - Occupancy and uneven work: one CTA per 16x16 square, one pixel per
+//   thread, so per-thread state is CP accumulators + T + the last index and
+//   2-4 CTAs fit an SM (the launch bound falls with the width: 4 up to
+//   CP = 20, 3 up to 32, 2 above); a tile of 32 is 4 independent CTAs (4x
+//   as many, each shorter), and each square stops once its own pixels have
+//   terminated. Any tile and any C from 4 to 64 (blend_common.cuh: the
+//   split, the compiled widths). No cluster: n_touched is an integer
+//   atomic, exact in any order, and n_contrib is per pixel.
 // - Pairs that cannot contribute: at the main path's shapes only ~12 % of
 //   the pairs a per-tile walk evaluates composite; the rest lie outside
 //   the instance's 1/255 ellipse. Each batch, thread i computes row i's
@@ -48,14 +50,18 @@
 
 namespace blend {
 
-template <int C>
-__global__ void __launch_bounds__(BLOCK, 4)
+// Resident CTAs the launch bound asks for: CP accumulators per thread.
+__host__ __device__ constexpr int fwd_min_blocks(int cp) { return cp <= 20 ? 4 : (cp <= 32 ? 3 : 2); }
+
+template <int CP, bool EXACT>
+__global__ void __launch_bounds__(BLOCK, fwd_min_blocks(CP))
 fwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
            const int* __restrict__ s_gid, const int* __restrict__ starts,
            const int* __restrict__ counts, float* __restrict__ out_feat,
            float* __restrict__ out_t, int* __restrict__ n_contrib,
-           int* __restrict__ n_touched, TileGeometry tg, int stats,
-           int py_limit) {
+           int* __restrict__ n_touched, TileGeometry tg, int channels,
+           int stats, int py_limit) {
+  const int C = EXACT ? CP : channels;
   extern __shared__ float4 smem4[];
   float* s_geom = reinterpret_cast<float*>(smem4);    // [2][BATCH][8]
   float* s_feat = s_geom + 2 * BATCH * GEOM_COLS;     // [2][BATCH * C]
@@ -71,17 +77,16 @@ fwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
   const int lane = threadIdx.x & 31;
   const float fx = (float)px, fy = (float)py;
   const bool counts_touched = stats && py < py_limit;
-  const float4 rect = make_float4((float)quad.x0, (float)(quad.x0 + tg.quad - 1),
-                                  (float)quad.y0, (float)(quad.y0 + tg.quad - 1));
+  const float4 rect = rect_of(quad);
   bool live = in_img;
   float T = 1.f;
   int last = 0;
-  float acc[C];
+  float acc[CP];
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  for (int c = 0; c < CP; ++c) acc[c] = 0.f;
 
   const int* ids = s_gid + start;
-  if (count > 0) load_batch<C>(geom, feat, ids, min(BATCH, count), s_geom, s_feat);
+  if (count > 0) load_batch(geom, feat, ids, min(BATCH, count), C, s_geom, s_feat);
   __pipeline_commit();
 
   int buf = 0;
@@ -91,9 +96,8 @@ fwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
     if (__syncthreads_count(live) == 0) break;
     const int n = min(BATCH, count - b0);
     if (b0 + BATCH < count)
-      load_batch<C>(geom, feat, ids + b0 + BATCH, min(BATCH, count - b0 - BATCH),
-                    s_geom + (buf ^ 1) * BATCH * GEOM_COLS,
-                    s_feat + (buf ^ 1) * BATCH * C);
+      load_batch(geom, feat, ids + b0 + BATCH, min(BATCH, count - b0 - BATCH), C,
+                 s_geom + (buf ^ 1) * BATCH * GEOM_COLS, s_feat + (buf ^ 1) * BATCH * C);
     __pipeline_commit();
     __pipeline_wait_prior(1);  // this batch's group has landed
     if ((int)threadIdx.x < n) s_touch[threadIdx.x] = 0;
@@ -120,8 +124,10 @@ fwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
               live = false;
             } else {
               const float w = alpha * T;
+              const float* row = bf + j * C;
 #pragma unroll
-              for (int c = 0; c < C; ++c) acc[c] = __fmaf_rn(w, bf[j * C + c], acc[c]);
+              for (int c = 0; c < CP; ++c)
+                if (c < C) acc[c] = __fmaf_rn(w, row[c], acc[c]);
               T = test_t;
               last = b0 + j + 1;
               touched = counts_touched && test_t > N_TOUCHED_T ? 1 : 0;
@@ -146,32 +152,47 @@ fwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
   out_t[idx] = T;
   n_contrib[idx] = stats ? last : 0;
 #pragma unroll
-  for (int c = 0; c < C; ++c) out_feat[c * hw + idx] = acc[c];
+  for (int c = 0; c < CP; ++c)
+    if (c < C) out_feat[c * hw + idx] = acc[c];
 }
 
-template <int C>
-constexpr size_t fwd_smem() {
+inline size_t fwd_smem(int C) {
   return sizeof(float) * 2 * BATCH * (GEOM_COLS + C) +
          sizeof(int) * (2 * BATCH + BLOCK / 32);
 }
 
-template <int C>
-static cudaError_t launch_fwd(cudaStream_t s, const float* geom,
-                              const float* feat, const int* s_gid,
-                              const int* starts, const int* counts,
-                              float* out_feat, float* out_t, int* n_contrib,
-                              int* n_touched, const TileGeometry& tg,
-                              int stats, int py_limit) {
-  return launch(fwd_kernel<C>, num_ctas(tg), fwd_smem<C>(), s, geom, feat,
-                s_gid, starts, counts, out_feat, out_t, n_contrib, n_touched,
-                tg, stats, py_limit);
-}
+struct FwdLaunch {
+  cudaStream_t s;
+  const float *geom, *feat;
+  const int *s_gid, *starts, *counts;
+  float *out_feat, *out_t;
+  int *n_contrib, *n_touched;
+  TileGeometry tg;
+  int C, stats, py_limit;
+
+  template <int CP, bool EXACT>
+  cudaError_t operator()() const {
+    return launch(fwd_kernel<CP, EXACT>, num_ctas(tg), fwd_smem(C), s, geom, feat,
+                  s_gid, starts, counts, out_feat, out_t, n_contrib, n_touched,
+                  tg, C, stats, py_limit);
+  }
+};
+
+struct FwdOccupancy {
+  int C;
+  int* blocks;
+
+  template <int CP, bool EXACT>
+  cudaError_t operator()() const {
+    return occupancy(fwd_kernel<CP, EXACT>, fwd_smem(C), blocks);
+  }
+};
 
 }  // namespace blend
 
 // Plain C entry point for ctypes. Returns the launch's error code, then
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported channel
-// count or tile).
+// cudaGetLastError() (cudaErrorInvalidValue for a channel count outside
+// 4..64 or a tile < 1).
 extern "C" int blend_fwd(const float* geom, const float* feat,
                          const int* s_gid, const int* starts,
                          const int* counts, float* out_feat, float* out_t,
@@ -181,24 +202,10 @@ extern "C" int blend_fwd(const float* geom, const float* feat,
   using namespace blend;
   TileGeometry tg;
   if (!make_geometry(width, height, tile, &tg)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  switch (channels) {
-    case 4:
-      err = launch_fwd<4>(s, geom, feat, s_gid, starts, counts, out_feat, out_t,
-                          n_contrib, n_touched, tg, stats, py_limit);
-      break;
-    case 7:
-      err = launch_fwd<7>(s, geom, feat, s_gid, starts, counts, out_feat, out_t,
-                          n_contrib, n_touched, tg, stats, py_limit);
-      break;
-    case 19:
-      err = launch_fwd<19>(s, geom, feat, s_gid, starts, counts, out_feat, out_t,
-                           n_contrib, n_touched, tg, stats, py_limit);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const FwdLaunch f{(cudaStream_t)stream, geom, feat, s_gid, starts, counts,
+                    out_feat, out_t, n_contrib, n_touched, tg, channels, stats,
+                    py_limit};
+  const cudaError_t err = dispatch_width(channels, f);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -207,10 +214,5 @@ extern "C" int blend_fwd(const float* geom, const float* feat,
 // diagnostics of chip_smoke.py.
 extern "C" int blend_fwd_occupancy(int channels, int* blocks) {
   using namespace blend;
-  switch (channels) {
-    case 4: return (int)occupancy(fwd_kernel<4>, fwd_smem<4>(), blocks);
-    case 7: return (int)occupancy(fwd_kernel<7>, fwd_smem<7>(), blocks);
-    case 19: return (int)occupancy(fwd_kernel<19>, fwd_smem<19>(), blocks);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch_width(channels, FwdOccupancy{channels, blocks});
 }

@@ -1,10 +1,17 @@
 """Build and launch the hand-written blend kernels (csrc/*.cu).
 
-The CUDA sources have a plain C interface; they are compiled with `nvcc`
-for `sm_90a` into one shared library at first use and loaded with ctypes.
-The library lands in `build/torch_kernels/` at the repository root, keyed by
-a hash of the sources and flags, so an edited source or header rebuilds
-and an unchanged one is reused. Nothing here runs at import time.
+The CUDA sources have a plain C interface; each `.cu` is compiled with
+`nvcc` for `sm_90a` (all at once, one process each) and linked into one
+shared library at first use, loaded with ctypes. The library lands in
+`build/torch_kernels/` at the repository root, keyed by a hash of the
+sources and flags, so an edited source or header rebuilds and an
+unchanged one is reused. Nothing here runs at import time.
+
+The kernels take any tile >= 1 and any channel count C = F + 4 from
+MIN_CHANNELS to MAX_CHANNELS. Each is compiled once per width: an EXACT
+instance for C = 4, 7 and 19 (the main path's widths, C fixed at compile
+time) and a padded instance for each of PADDED_WIDTHS, which runs any C up
+to its width (`instance_of`; `dispatch_width` in csrc/blend_common.cuh).
 
 `--fmad=false` keeps the kernels' float arithmetic operation for operation
 the same as the JAX reference's (no fused multiply-adds the source does not
@@ -27,13 +34,15 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_SOURCES = ("blend_common.cuh", "blend_fwd.cu", "blend_bwd.cu")
 _REPO = Path(__file__).resolve().parents[3]
 BUILD_DIR = _REPO / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
+MIN_CHANNELS, MAX_CHANNELS = 4, 64
+EXACT_WIDTHS = (4, 7, 19)
+PADDED_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 48, 64)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # ctypes signatures of the extern "C" entry points, in source order: a
@@ -62,59 +71,117 @@ def _nvcc() -> str:
                        "are built from csrc/ at first use")
 
 
-def nvcc_command(nvcc: str, out: Path) -> list[str]:
-    """The build command: every `.cu` of `_SOURCES` into one library."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out),
-            *(str(_CSRC / s) for s in _SOURCES if s.endswith(".cu"))]
+def instance_of(channels: int) -> tuple[int, bool]:
+    """(width, exact) of the compiled instance that runs `channels`."""
+    if not MIN_CHANNELS <= channels <= MAX_CHANNELS:
+        raise ValueError(f"the blend kernels take {MIN_CHANNELS} to {MAX_CHANNELS} "
+                         f"channels (F_lang 0 to {MAX_CHANNELS - 4}), got {channels}")
+    if channels in EXACT_WIDTHS:
+        return channels, True
+    return next(w for w in PADDED_WIDTHS if w >= channels), False
 
 
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
+def instance_name(kernel: str, channels: int) -> str:
+    """`instance_name("bwd", 27)` -> `bwd_kernel<28, false>`, as
+    `ptxas_summary` names it."""
+    width, exact = instance_of(channels)
+    return f"{kernel}_kernel<{width}, {str(exact).lower()}>"
+
+
+def instances() -> list[tuple[int, bool]]:
+    """Every compiled (width, exact) instance."""
+    return [(w, True) for w in EXACT_WIDTHS] + [(w, False) for w in PADDED_WIDTHS]
+
+
+def nvcc_commands(nvcc: str, out: Path, csrc: Path = _CSRC
+                  ) -> tuple[list[list[str]], list[str]]:
+    """The build: one compile per `.cu` of `csrc` (run together), then the
+    link of their objects into one library."""
+    objs, compiles = [], []
+    for src in sorted(csrc.glob("*.cu")):
+        obj = out.with_name(f"{out.name}.{src.stem}.o")
+        objs.append(str(obj))
+        compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    return compiles, [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                      "-o", str(out), *objs]
+
+
+def library_path(csrc: Path = _CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """The library of `csrc`, named by a hash of every file there (an
+    edited header rebuilds) and of the flags."""
     digest = hashlib.sha256()
-    for name in _SOURCES:
-        digest.update((_CSRC / name).read_bytes())
+    for src in sorted(p for p in csrc.iterdir() if p.is_file()):
+        digest.update(src.name.encode() + src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"blend_{digest.hexdigest()[:16]}.so"
+    return build_dir / f"blend_{digest.hexdigest()[:16]}.so"
+
+
+def build_library(csrc: Path = _CSRC, build_dir: Path = BUILD_DIR) -> tuple[ctypes.CDLL, dict]:
+    """Build (unless a library of the same sources and flags exists) and
+    load the kernels of `csrc` with their ctypes signatures; returns the
+    library and its build's record (log, built, seconds, path)."""
+    so = library_path(csrc, build_dir)
+    info: dict = {}
     t0 = time.time()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run(nvcc_command(_nvcc(), tmp), capture_output=True, text=True)
+        compiles, link = nvcc_commands(_nvcc(), tmp, csrc)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for cmd in compiles]
+        logs = []
+        for cmd, proc in zip(compiles, procs):
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{err}")
+        res = subprocess.run(link, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        for obj in link[link.index(str(tmp)) + 1:]:
+            os.remove(obj)
         os.replace(tmp, so)
-        build_info["log"] = res.stderr
-        build_info["built"] = True
+        info.update(log="".join(logs), built=True)
     else:
-        build_info["built"] = False
-    build_info["seconds"] = time.time() - t0
-    build_info["path"] = str(so)
+        info["built"] = False
+    info.update(seconds=time.time() - t0, path=str(so))
     lib = ctypes.CDLL(str(so))
     for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _I
-    _lib = lib
-    return lib
+    return lib, info
+
+
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load this package's kernel library."""
+    global _lib
+    if _lib is None:
+        _lib, info = build_library()
+        build_info.update(info)
+    return _lib
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _KERNEL = re.compile(r"_ZN5blend(\d+)(\w+?)I(.*)EEvP")
+_TEMPLATE_ARG = re.compile(r"L([ib])(\d+)E")
 _USED = re.compile(r"Used (\d+) registers")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _SMEM = re.compile(r"(\d+) bytes smem")
 
 
 def _kernel_name(mangled: str) -> str:
-    """`_ZN5blend10bwd_kernelILi19EEEvPKf...` -> `bwd_kernel<19>`."""
+    """`_ZN5blend10bwd_kernelILi28ELb0EEEvPKf...` -> `bwd_kernel<28, false>`."""
     m = _KERNEL.match(mangled)
     if not m:
         return mangled
     name = m.group(2)[:int(m.group(1))]
-    return f"{name}<{', '.join(re.findall(r'Li(\d+)E', m.group(3)))}>"
+    args = [v if kind == "i" else ("true" if v == "1" else "false")
+            for kind, v in _TEMPLATE_ARG.findall(m.group(3))]
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_summary(log: str) -> list[dict]:
@@ -159,10 +226,11 @@ def _raise_on(err: int, name: str):
 
 def launch_forward(geom, feat, s_gid, starts, tile_counts, feat_img, final_t,
                    n_contrib, n_touched, *, channels: int, width: int,
-                   height: int, tile: int, stats: bool, py_limit: int | None = None):
-    """The forward kernel; n_touched counts the rows py < `py_limit`
-    (default: all `height` rows)."""
-    lib = library()
+                   height: int, tile: int, stats: bool, py_limit: int | None = None,
+                   lib: ctypes.CDLL | None = None):
+    """The forward kernel (of `lib`, default this package's); n_touched
+    counts the rows py < `py_limit` (default: all `height` rows)."""
+    lib = lib or library()
     # A launch goes to the thread's current device: the tensors' card (a
     # mesh spreads renders over several cards).
     with torch.cuda.device(feat.device):
@@ -176,8 +244,8 @@ def launch_forward(geom, feat, s_gid, starts, tile_counts, feat_img, final_t,
 
 def launch_backward(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
                     feat_img, final_t, d_table, *, channels: int, width: int,
-                    height: int, tile: int):
-    lib = library()
+                    height: int, tile: int, lib: ctypes.CDLL | None = None):
+    lib = lib or library()
     with torch.cuda.device(feat.device):
         err = lib.blend_bwd(
             geom.data_ptr(), feat.data_ptr(), s_gid.data_ptr(), starts.data_ptr(),

@@ -12,7 +12,9 @@ outputs (`blend_forward_plain`, `blend_backward_plain`): a loop over tiles,
 vectorised over (instances × pixels) with `cumprod`, walking each
 tile's range in chunks and stopping once every pixel has terminated. The wrappers
 `blend_forward` / `blend_backward` take the plain version only for CPU
-tensors; for CUDA tensors they launch the kernel or raise.
+tensors; for CUDA tensors they launch the kernel or raise. The kernels
+take the JAX kernels' domain up to F = 60: any tile >= 1 and C = F + 4
+from kernels.MIN_CHANNELS to kernels.MAX_CHANNELS (4 to 64).
 
 Inputs of both directions, per Gaussian:
   geom (P, 8) float: x, y, conic a, b, c, opacity, 0, 0
@@ -42,11 +44,11 @@ import torch
 
 from . import config as C
 from .binning import bin_gaussians_sorted
+from .kernels import MAX_CHANNELS, MIN_CHANNELS
 from .oracle import BlendOutput
 from .preprocess import Preprocessed
 
 GEOM_COLS = 8
-SUPPORTED_CHANNELS = (4, 7, 19)  # F_lang 0 (tracking), 3, 15 (mapping)
 
 
 @dataclass
@@ -115,14 +117,32 @@ def _chunk_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
     one_minus = 1.0 - alpha
     ones = torch.ones_like(one_minus[:1])
-    cum_t = t_prev[None, :] * torch.cat([ones, torch.cumprod(one_minus, 0)[:-1]], 0)
+    sequential = one_minus.is_cuda
+    if sequential:
+        # On the card cumprod multiplies down a column in float32, one row
+        # after another, so starting the scan at the chunk's entry value
+        # gives the kernels' own chain (T <- T (1 - alpha) per row) bit for
+        # bit, and the thresholds (T < 1e-4, T > 0.5) count exactly as in
+        # the kernels, also in a tile of several chunks. (Scaling the
+        # chunk's own product by the entry value afterwards rounds
+        # differently.)
+        cum_t = torch.cumprod(torch.cat([t_prev[None, :], one_minus[:-1]], 0), 0)
+    else:
+        # On the CPU cumprod accumulates in float64, so no form repeats the
+        # kernels' float32 chain; this one is what the CPU parity tests
+        # against the JAX package hold.
+        cum_t = t_prev[None, :] * torch.cat([ones, torch.cumprod(one_minus, 0)[:-1]], 0)
     test_t = cum_t * one_minus
     # cum_t is non-increasing down the instance axis (skipped rows multiply
     # by exactly 1), so "a stop fired at or before row i" is test_t < eps.
     stopped = test_t < C.T_EPS
     contrib = ~skip & ~stopped & ~done[None, :]
     w = torch.where(contrib, alpha * cum_t, torch.zeros_like(alpha))
-    t_next = t_prev * torch.prod(torch.where(contrib, one_minus, ones), 0)
+    if sequential:  # T after the last contributing row: its test_t
+        t_next = torch.minimum(t_prev, torch.where(
+            contrib, test_t, torch.full_like(test_t, float("inf"))).amin(0))
+    else:
+        t_next = t_prev * torch.prod(torch.where(contrib, one_minus, ones), 0)
     done_next = done | (~skip & stopped).any(0)
     return dict(dx=dx, dy=dy, expp=expp, alpha_raw=alpha_raw, skip=skip,
                 one_minus=one_minus, cum_t=cum_t, test_t=test_t,
@@ -267,12 +287,14 @@ def blend_work(geom, feat, s_gid, starts, tile_counts, *, width: int,
 
 
 def _check_cuda_inputs(tensors: dict, channels: int, tile: int):
-    if channels not in SUPPORTED_CHANNELS:
+    """The kernels' domain (any tile >= 1; C = F_lang + 4 from MIN_CHANNELS
+    to MAX_CHANNELS), then each tensor's device, type and layout."""
+    if not MIN_CHANNELS <= channels <= MAX_CHANNELS:
         raise ValueError(
-            f"blend kernel supports {SUPPORTED_CHANNELS} feature channels, "
-            f"got {channels}")
-    if not (0 < tile <= 16 or tile == 32):  # one CTA per tile, or 2x2 quadrants
-        raise ValueError(f"blend kernel supports tiles of 1-16 and 32, got {tile}")
+            f"the blend kernels take {MIN_CHANNELS} to {MAX_CHANNELS} channels "
+            f"(F_lang 0 to {MAX_CHANNELS - 4}), got {channels}")
+    if tile < 1:
+        raise ValueError(f"the blend kernels take tiles >= 1, got {tile}")
     device = None
     for name, (t, dtype) in tensors.items():
         if not t.is_cuda:

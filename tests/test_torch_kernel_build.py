@@ -12,6 +12,7 @@
 
 import ctypes
 import re
+import shutil
 from pathlib import Path
 
 import pytest
@@ -33,16 +34,29 @@ def _entry_points() -> dict:
     return found
 
 
-def test_every_source_is_hashed():
-    on_disk = sorted(p.name for p in CSRC.iterdir() if p.is_file())
-    assert on_disk and sorted(kernels._SOURCES) == on_disk
+def test_every_source_is_hashed(tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    names = sorted(p.name for p in csrc.iterdir())
+    assert {"blend_common.cuh", "blend_fwd.cu", "blend_bwd.cu"} <= set(names)
+    seen = {kernels.library_path(csrc, tmp_path)}
+    assert seen == {kernels.library_path(CSRC, tmp_path)}
+    for name in names:
+        with open(csrc / name, "a") as f:
+            f.write("\n")
+        seen.add(kernels.library_path(csrc, tmp_path))
+    assert len(seen) == len(names) + 1
 
 
 def test_every_cu_is_compiled():
-    cmd = kernels.nvcc_command("nvcc", Path("/tmp/out.so"))
-    compiled = sorted(Path(a).name for a in cmd if a.endswith(".cu"))
-    assert compiled == sorted(p.name for p in CSRC.glob("*.cu"))
-    assert "--fmad=false" in cmd and "arch=compute_90a,code=sm_90a" in cmd
+    out = Path("/tmp/out.so")
+    compiles, link = kernels.nvcc_commands("nvcc", out)
+    sources = sorted(Path(cmd[-1]).name for cmd in compiles)
+    assert sources == sorted(p.name for p in CSRC.glob("*.cu"))
+    for cmd in compiles:
+        assert "--fmad=false" in cmd and "arch=compute_90a,code=sm_90a" in cmd
+        assert "-c" in cmd and cmd[cmd.index("-o") + 1] in link
+    assert link[link.index("-o") + 1] == str(out) and "-shared" in link
 
 
 def test_entry_points_are_all_bound():
@@ -58,24 +72,65 @@ def test_argtypes_match_the_c_signature(name):
 
 _LOG = """\
 ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN5blend10bwd_kernelILi19EEEvPKfS2_PKiS4_S4_S2_S2_S2_S2_PfNS_12TileGeometryE' for 'sm_90a'
-ptxas info    : Function properties for _ZN5blend10bwd_kernelILi19EEEvPKfS2_PKiS4_S4_S2_S2_S2_S2_PfNS_12TileGeometryE
+ptxas info    : Compiling entry function '_ZN5blend10bwd_kernelILi19ELb1EEEvPKfS2_PKiS4_S4_S2_S2_S2_S2_PfNS_12TileGeometryEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN5blend10bwd_kernelILi19ELb1EEEvPKfS2_PKiS4_S4_S2_S2_S2_S2_PfNS_12TileGeometryEi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 80 registers, used 1 barriers, 400 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN5blend10fwd_kernelILi4EEEvPKfS2_PKiS4_S4_PfS5_PiS6_NS_12TileGeometryEi' for 'sm_90a'
-ptxas info    : Function properties for _ZN5blend10fwd_kernelILi4EEEvPKfS2_PKiS4_S4_PfS5_PiS6_NS_12TileGeometryEi
+ptxas info    : Compiling entry function '_ZN5blend10fwd_kernelILi28ELb0EEEvPKfS2_PKiS4_S4_PfS5_PiS6_NS_12TileGeometryEiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN5blend10fwd_kernelILi28ELb0EEEvPKfS2_PKiS4_S4_PfS5_PiS6_NS_12TileGeometryEiii
     8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 40 registers, used 1 barriers, 16 bytes smem, 404 bytes cmem[0]
 """
 
 
+def _entry(kernel: str, width: int, exact: bool) -> str:
+    name = f"{kernel}_kernel"
+    return (f"ptxas info    : Compiling entry function '_ZN5blend{len(name)}{name}ILi{width}"
+            f"ELb{int(exact)}EEEvPKfS2_PKiS4_S4_PfNS_12TileGeometryEi' for 'sm_90a'\n"
+            f"ptxas info    : Used {width + 40} registers, used 1 barriers\n")
+
+
 def test_ptxas_summary_names_each_instance():
     rows = kernels.ptxas_summary(_LOG)
     assert rows == [
-        {"kernel": "bwd_kernel<19>", "stack": 0, "spill_stores": 0,
+        {"kernel": "bwd_kernel<19, true>", "stack": 0, "spill_stores": 0,
          "spill_loads": 0, "registers": 80, "smem": 0},
-        {"kernel": "fwd_kernel<4>", "stack": 8, "spill_stores": 4,
+        {"kernel": "fwd_kernel<28, false>", "stack": 8, "spill_stores": 4,
          "spill_loads": 12, "registers": 40, "smem": 16},
     ]
     assert kernels.ptxas_summary("") == []
+    # Every compiled instance, named as chip_smoke.py looks it up.
+    log = "".join(_entry(k, w, e) for k in ("fwd", "bwd") for w, e in kernels.instances())
+    names = [row["kernel"] for row in kernels.ptxas_summary(log)]
+    assert names == [kernels.instance_name(k, w) for k in ("fwd", "bwd")
+                     for w, _ in kernels.instances()]
+    assert len(set(names)) == 2 * len(kernels.instances())
 
+
+_EXACT_CASE = re.compile(r"case (\d+): return f\.template operator\(\)<(\d+), true>\(\);")
+_PADDED_CASE = re.compile(r"return f\.template operator\(\)<(\d+), false>\(\);")
+
+
+def test_dispatch_widths_match_the_source():
+    """The widths blend_common.cuh's dispatch_width compiles and routes to
+    are kernels.py's (instance_of), and so is the domain."""
+    src = (CSRC / "blend_common.cuh").read_text()
+    body = src[src.index("cudaError_t dispatch_width("):]
+    body = body[:body.index("\n}\n")]
+    exact = [(int(a), int(b)) for a, b in _EXACT_CASE.findall(body)]
+    assert all(a == b for a, b in exact)
+    assert tuple(a for a, _ in exact) == kernels.EXACT_WIDTHS
+    assert tuple(int(w) for w in _PADDED_CASE.findall(body)) == kernels.PADDED_WIDTHS
+    lo, hi = re.search(r"MIN_CHANNELS = (\d+), MAX_CHANNELS = (\d+);", src).groups()
+    assert (int(lo), int(hi)) == (kernels.MIN_CHANNELS, kernels.MAX_CHANNELS)
+    assert kernels.PADDED_WIDTHS[-1] == kernels.MAX_CHANNELS
+    # The C-side routing, replayed: the first padded width >= C unless C
+    # has an exact instance.
+    for c in range(kernels.MIN_CHANNELS, kernels.MAX_CHANNELS + 1):
+        want = (c, True) if c in kernels.EXACT_WIDTHS else (
+            min(w for w in kernels.PADDED_WIDTHS if w >= c), False)
+        assert kernels.instance_of(c) == want
+        conds = [int(w) for w in re.findall(r"if \(C <= (\d+)\) return", body)]
+        if c not in kernels.EXACT_WIDTHS:
+            routed = next((w for w in conds if c <= w), kernels.PADDED_WIDTHS[-1])
+            assert routed == want[0]
