@@ -2,14 +2,15 @@
 """GPU smoke run of the PyTorch/CUDA port on one card.
 
     python3 chip_smoke.py [--frames 8] [--config configs/synthetic/replica_scale.yaml]
+                          [--ab-other DIR]
 
 Phases (each prints its own lines; any failure raises, so the exit code is
 non-zero):
   0. require CUDA; print the card's name and power limit (nvidia-smi);
   1. build the blend kernels from csrc/ (one nvcc per source, run
      together) and print the build time, each kernel instance's ptxas
-     registers / spills / static shared memory (every compiled width must
-     appear) and its resident CTAs per SM;
+     registers / spills / static shared memory (every compiled instance
+     must appear, none may spill) and its resident CTAs per SM;
   2. kernel vs plain PyTorch version on the card, on the ten golden scenes
      (tests/goldens, tests/goldens_t32) at F_lang 15 and 0, stats on and
      off; the kernel path is also held against the golden npz;
@@ -25,7 +26,10 @@ non-zero):
      back); the pairs the blend must evaluate and those that composite
      there (tiled.blend_work), and from them and the Gaussians the render
      uses each kernel's bound (operations over the float32 peak or bytes
-     over the memory rate, the larger) and its share of it;
+     over the memory rate, the larger) and its share of it; the backward
+     alone is the rows' zero fill, the rows kernel and the reduce kernel,
+     the reduce kernel is also timed alone beside `index_add_` on the same
+     rows and held bit for bit to its plain version;
   5. the extractor at full width: frame 0 (1200x680) -> 768^2 -> ConvNeXt-L
      -> HR head -> AE -> (192, 192, 15), unit-norm codes; the card against
      the port's own CPU path at 128^2 on the same weights; median times of
@@ -84,8 +88,8 @@ non-zero):
      band and on the whole frame; (c) the banded tracking run of the last
      frame against tracking_run (at every pose the banded run rendered,
      the banded and the single-device loss and pose gradient; the run
-     converged and near GT; tracking_run's own run-to-run spread printed
-     beside the banded run's); (d) the data-parallel mapping
+     converged and near GT; tracking_run and the banded run each run
+     twice, bit-equal to themselves); (d) the data-parallel mapping
      iteration over 2 shards against mapping_iteration; (e) the
      disentangled rasterizer (the colour pass equals the entangled render,
      the language pass's C = 7 kernels equal their plain versions on its
@@ -107,11 +111,27 @@ non-zero):
      `language.labels_from_file` and `lang_code_size: 23`: PSNR, aligned
      ATE, lang-L1 and FPS held to the gate's bounds, the keyframes'
      supervision equal to the files, launches at C = 27 and no plain call;
+ 12. (run after phase 11 (b)) repeatability and channel groups: (a) on
+     phase 3's last render the backward 10 times at C = 4, 19, 27, 64 and
+     128 (two channel groups), d_geom and d_feat bit-equal every time, and
+     kernel vs plain at phase 2's bounds; (b) 20 mapping iterations twice
+     from phase 3's state (parameters, Adam moments, aux state, slot poses,
+     losses bit-equal), tracking_run and the banded run twice (phase 10
+     (c)), and `slam_torch.main` on phase 3's config over 4 frames twice
+     (map init cut to 350 iterations; trajectory, tracking iterations, map
+     and PSNR bit-equal); (c) kernel vs plain on the five golden scenes at
+     tiles 15, 32 and 64 x F_lang 61, 64, 124 and 252 (channel groups, the
+     channels past 15 seeded), integers exact and phase 2's bounds; (d) both
+     kernels at C = 64 and 128 on phase 3's map by phase 4's method, the
+     workspace of per-instance rows at tiles 15, 32 and 64, and with
+     --ab-other DIR `tools.blend_ab` against DIR's kernels (tile 32, F_lang
+     15 and 0);
 then one JSON line of the disk-entry numbers, one of the language numbers,
 one of the 3D-evaluation numbers, one of the language tools' numbers, one
-of the multi-device numbers, one of the domain numbers, one of per-kernel
-results (each compiled width with its launches per path) and, last, the ok
-line.
+of the multi-device numbers, one of the domain numbers, one of the
+repeatability numbers, one of per-kernel results (the forward, the
+backward's rows and its reduce kernel, each compiled instance with its
+launches per path) and, last, the ok line.
 
 Imports nothing of JAX.
 """
@@ -150,8 +170,9 @@ GATE_MIOU_STAGE = {1: 0.7, 2: 0.35}
 GATE_LOC, GATE_QUERIES, GATE_FRAMES, GATE_AE_COS = 0.75, 8, 8, 0.98
 MIOU_FRAMES = 16
 # Phase 7: frames on disk, refinement iterations, the resume's pose bound
-# (float atomics reorder the backward's sums), the largest PSNR loss
-# refinement may cause, LPIPS card vs CPU (relative).
+# (a resume repeats the uninterrupted run bit for bit; the distance is
+# printed), the largest PSNR loss refinement may cause, LPIPS card vs CPU
+# (relative).
 # 12 frames: keyframes come at least 4 (kf_interval) apart, so a snapshot
 # with frames left to track after it exists.
 DISK_FRAMES, REFINE_ITERS, RESUME_TOL, REFINE_PSNR_DROP, LPIPS_TOL = 12, 200, 2e-3, 0.5, 1e-5
@@ -213,14 +234,19 @@ def phase1_build():
         print(f"[phase1] ptxas {row['kernel']}: {row.get('registers')} registers, "
               f"{row.get('spill_stores')} B spill stores, {row.get('spill_loads')} B "
               f"spill loads, {row.get('stack')} B stack, {row.get('smem')} B static smem")
-    expected = {kernels.instance_name(k, c) for c, _ in kernels.instances()
-                for k in ("fwd", "bwd")}
+    expected = set(kernels.instance_names())
     if info["built"] and {row["kernel"] for row in ptxas} != expected:
         raise AssertionError(f"the build log's kernel instances "
                              f"{sorted(row['kernel'] for row in ptxas)} are not {sorted(expected)}")
-    # Every compiled instance, at its width's shared memory.
+    spilled = [row["kernel"] for row in ptxas if row.get("spill_stores") or row.get("spill_loads")]
+    if spilled:
+        raise AssertionError(f"kernel instances spill: {spilled}")
+    # Every compiled instance, at its width's shared memory (the reduce
+    # kernel's at the widest C of its values per lane).
     resident = {kernels.instance_name(k, c): kernels.occupancy(k, c)
                 for c, _ in kernels.instances() for k in ("fwd", "bwd")}
+    resident.update({kernels.instance_name("reduce", c): kernels.occupancy("reduce", c)
+                     for c in (26, 58, 64)})
     print("[phase1] resident CTAs per SM (256 threads, dynamic shared memory "
           "included): " + json.dumps(resident))
     return {"ptxas": ptxas, "resident_ctas": resident}
@@ -246,7 +272,7 @@ def _compare_blend(geom, feat, binning, g_feat, g_t, *, width, height, tile,
     errs = {"feat_img": _norm_err(k[0], p[0]), "final_t": _norm_err(k[1], p[1]),
             "n_contrib": int((k[2] != p[2]).sum()),
             "n_touched": int((k[3] != p[3]).sum())}
-    kb = tiled.blend_backward(*args, g_feat, g_t, p[0], p[1], **kw)
+    kb = tiled.blend_backward(*args, g_feat, g_t, p[0], p[1], emission=binning.emission, **kw)
     pb = tiled.blend_backward_plain(*args, g_feat, g_t, p[0], p[1], **kw)
     torch.cuda.synchronize()
     errs["d_geom"] = _norm_err(kb[0], pb[0])
@@ -331,18 +357,18 @@ def phase2_goldens(dev):
 
 
 def _launch_counts(tiled) -> dict:
-    return {"fwd_launches": tiled.FWD_STATS.launches,
-            "bwd_launches": tiled.BWD_STATS.launches,
-            "fwd_plain": tiled.FWD_STATS.plain_calls,
-            "bwd_plain": tiled.BWD_STATS.plain_calls,
-            "fwd_by_channels": dict(tiled.FWD_STATS.launches_by_channels),
-            "bwd_by_channels": dict(tiled.BWD_STATS.launches_by_channels)}
+    stats = {"fwd": tiled.FWD_STATS, "bwd": tiled.BWD_STATS, "reduce": tiled.REDUCE_STATS}
+    counts = {f"{k}_launches": v.launches for k, v in stats.items()}
+    counts.update({f"{k}_plain": v.plain_calls for k, v in stats.items()})
+    counts.update({f"{k}_by_channels": dict(v.launches_by_channels) for k, v in stats.items()})
+    return counts
 
 
 def _check_launches(counts: dict, where: str):
-    if counts["fwd_launches"] == 0 or counts["bwd_launches"] == 0:
+    if (counts["fwd_launches"] == 0 or counts["bwd_launches"] == 0
+            or counts["reduce_launches"] != counts["bwd_launches"]):
         raise AssertionError(f"{where}: a blend kernel was never launched: {counts}")
-    if counts["fwd_plain"] or counts["bwd_plain"]:
+    if counts["fwd_plain"] or counts["bwd_plain"] or counts["reduce_plain"]:
         raise AssertionError(f"{where}: a plain blend ran: {counts}")
 
 
@@ -353,8 +379,7 @@ def phase3_main_path(config_path: str, frames: int, dev):
     from online_lang_splatting_tpu_torch.slam.backend import resize_bilinear
     from online_lang_splatting_tpu_torch.slam.renderer import activate, render
 
-    tiled.FWD_STATS.reset()
-    tiled.BWD_STATS.reset()
+    _reset(tiled)
     t0 = time.time()
     slam = slam_torch.main(["--config", config_path, "--max-frames", str(frames),
                             "--device", str(dev)])
@@ -491,15 +516,19 @@ def _time_back_to_back(fn, runs: int, repeats: int = 3) -> float:
 
 
 def _kernel_times(geom, feat, binning, *, width, height, tile, stats, seed, dev) -> dict:
-    """Both kernels against their plain versions on one render's inputs
+    """The kernels against their plain versions on one render's inputs
     (cotangents drawn from `seed`), then their times: one wrapper call at a
-    time (`ms`), the kernel alone with launches back to back (`device_ms`),
-    the plain versions', the pairs this data needs (tiled.blend_work) and
-    from them the bound and the share."""
+    time (`ms`), the kernels alone with launches back to back (`device_ms`;
+    the backward is the zero fill of the rows, the rows kernel and the
+    reduce kernel; past 64 channels one launch per channel group), the
+    reduce kernel alone and `index_add_` on the same rows, the plain
+    versions', the pairs this data needs (tiled.blend_work) and from them
+    the bound and the share."""
     from online_lang_splatting_tpu_torch.ops.raster import kernels, tiled
 
     w, h = width, height
     c = feat.shape[1]
+    p = geom.shape[0]
     gen = torch.Generator(device=dev).manual_seed(seed)
     g_feat = torch.randn((c, h, w), generator=gen, device=dev)
     g_t = torch.randn((h, w), generator=gen, device=dev)
@@ -507,6 +536,7 @@ def _kernel_times(geom, feat, binning, *, width, height, tile, stats, seed, dev)
                                         width=w, height=h, tile=tile, stats=True)
     args = (geom, feat, binning.s_gid, binning.starts, binning.tile_counts)
     kw = dict(width=w, height=h, tile=tile)
+    em = binning.emission
     fo = tiled.blend_forward(*args, **kw)
 
     def k_fwd():
@@ -514,10 +544,10 @@ def _kernel_times(geom, feat, binning, *, width, height, tile, stats, seed, dev)
 
     def k_fb():
         o = tiled.blend_forward(*args, stats=stats, **kw)
-        tiled.blend_backward(*args, g_feat, g_t, o[0], o[1], **kw)
+        tiled.blend_backward(*args, g_feat, g_t, o[0], o[1], emission=em, **kw)
 
     def k_bwd():
-        tiled.blend_backward(*args, g_feat, g_t, fo[0], fo[1], **kw)
+        tiled.blend_backward(*args, g_feat, g_t, fo[0], fo[1], emission=em, **kw)
 
     def p_fwd():
         tiled.blend_forward_plain(*args, stats=stats, **kw)
@@ -535,47 +565,111 @@ def _kernel_times(geom, feat, binning, *, width, height, tile, stats, seed, dev)
     kb, pb = _time(k_bwd, 20), _time(p_bwd, 1)
 
     # The kernels alone: launches enqueued back to back into preallocated
-    # buffers (the atomics accumulate across launches, which the timing
-    # does not read). Turns: fwd, bwd, bwd, fwd.
-    bufs = [torch.empty_like(t) for t in fo]
-    d_table = torch.zeros((geom.shape[0], 6 + c), dtype=torch.float32, device=dev)
-    kkw = dict(channels=c, **kw)
+    # buffers, one per channel group. Turns: fwd, bwd, bwd, fwd.
+    groups = tiled.channel_groups(c)
+    k_cta = kernels.ctas_per_tile(tile)
+    s_count = int(binning.s_gid.numel())
+    g_args = []
+    for i, (a, b) in enumerate(groups):
+        g_args.append(dict(
+            feat=feat[:, a:b].contiguous(), channels=b - a, g_feat=g_feat[a:b],
+            g_t=g_t if i == 0 else torch.zeros_like(g_t), img=fo[0][a:b],
+            out=(torch.empty((b - a, h, w), device=dev), torch.empty((h, w), device=dev),
+                 torch.empty((h, w), dtype=torch.int32, device=dev),
+                 torch.zeros(p, dtype=torch.int32, device=dev)),
+            rows=torch.zeros((s_count, k_cta, 6 + b - a), device=dev),
+            table=torch.empty((p, 6 + b - a), device=dev), stats=stats and i == 0))
+    rest = (binning.s_gid, binning.starts, binning.tile_counts)
 
     def d_fwd():
-        kernels.launch_forward(*args, *bufs, stats=stats, **kkw)
+        for g in g_args:
+            kernels.launch_forward(geom, g["feat"], *rest, *g["out"], channels=g["channels"],
+                                   stats=g["stats"], **kw)
 
     def d_bwd():
-        kernels.launch_backward(*args, g_feat, g_t, fo[0], fo[1], d_table, **kkw)
+        for g in g_args:
+            g["rows"].zero_()
+            kernels.launch_backward(geom, g["feat"], *rest, g["g_feat"], g["g_t"], g["img"],
+                                    fo[1], g["rows"], channels=g["channels"], **kw)
+            kernels.launch_reduce(g["rows"], em.inst, em.start, em.count, g["table"],
+                                  channels=g["channels"])
+
+    def d_reduce():
+        for g in g_args:
+            kernels.launch_reduce(g["rows"], em.inst, em.start, em.count, g["table"],
+                                  channels=g["channels"])
+
+    # The library call that sums the same rows per Gaussian: index_add_
+    # (float atomics, not repeatable), timed here, used nowhere in the port.
+    rep_ids = binning.s_gid.long().repeat_interleave(k_cta)
+    lib_tables = [torch.zeros_like(g["table"]) for g in g_args]
+
+    def l_reduce():
+        for g, t in zip(g_args, lib_tables):
+            t.index_add_(0, rep_ids, g["rows"].view(-1, g["rows"].shape[2]))
 
     df1, db1 = _time_back_to_back(d_fwd, 50), _time_back_to_back(d_bwd, 50)
     db2, df2 = _time_back_to_back(d_bwd, 50), _time_back_to_back(d_fwd, 50)
+    dr1, lr1 = _time_back_to_back(d_reduce, 50), _time_back_to_back(l_reduce, 50)
+    lr2, dr2 = _time_back_to_back(l_reduce, 50), _time_back_to_back(d_reduce, 50)
+    # The reduce's launch wrapper one call at a time, as `ms` of the others.
+    kr = _time(d_reduce, 20)
+    rp = _time(lambda: [tiled.reduce_rows_plain(g["rows"], em, p) for g in g_args], 1)
+    torch.cuda.synchronize()
+    # The reduce kernel against its plain version on the kernel's own rows
+    # (the same order: bit for bit), and index_add_'s sums beside them.
+    red_abs = max(_abs_err(g["table"], tiled.reduce_rows_plain(g["rows"], em, p))
+                  for g in g_args)
+    lib_err = max(_norm_err(g["table"], torch.zeros_like(g["table"]).index_add_(
+        0, rep_ids, g["rows"].view(-1, g["rows"].shape[2]))) for g in g_args)
 
     evaluated, contributing = tiled.blend_work(*args, **kw)
     # Bytes each kernel must move, each read or written once: the rows of
     # the Gaussians this render uses (geom and feat), the instance list and
     # tile ranges, the images, and per Gaussian used its n_touched count
-    # (forward with stats) or its d_table row (backward).
+    # (forward with stats) or its d_table row (backward). The backward's
+    # workspace of per-instance rows is not counted: the bound reads the
+    # work whatever implements it. The reduce's work is the scatter-add it
+    # replaces: one row of 6 + C values and its Gaussian id read per
+    # instance, one add per value, the used Gaussians' d_table rows
+    # written. What it moves beyond that (the K rows per instance of the
+    # workspace, the emission order, the unused Gaussians' rows) is this
+    # port's design, printed beside the bound and not counted in it.
     used = int(torch.unique(binning.s_gid).numel())
     in_bytes = (used * 4 * (tiled.GEOM_COLS + c)
                 + _nbytes(binning.s_gid, binning.starts, binning.tile_counts))
     fwd_bytes = in_bytes + _nbytes(*fo[:3]) + (4 * used if stats else 0)
     bwd_bytes = in_bytes + _nbytes(g_feat, g_t, fo[0], fo[1]) + 4 * (6 + c) * used
-    r = dict(channels=c, tile=tile, instances=int(binning.s_gid.numel()),
-             demand=binning.num_instances, gaussians=int(geom.shape[0]),
-             gaussians_used=used,
+    workspace = sum(_nbytes(g["rows"]) for g in g_args)
+    row_values = sum(6 + b - a for a, b in groups)
+    red_bytes = 4 * row_values * (s_count + used) + _nbytes(binning.s_gid)
+    red_moved = (workspace + _nbytes(em.inst, em.start, em.count)
+                 + sum(_nbytes(g["table"]) for g in g_args))
+    r = dict(channels=c, tile=tile, groups=[b - a for a, b in groups],
+             instances=s_count, demand=binning.num_instances, gaussians=p,
+             gaussians_used=used, ctas_per_tile=k_cta, workspace_bytes=workspace,
+             reduce_moved_bytes=red_moved,
              pairs_evaluated=evaluated, pairs_contributing=contributing,
              fwd_ms=(kf1 + kf2) / 2, bwd_ms=kb, fwd_bwd_ms=kfb,
              fwd_device_ms=(df1 + df2) / 2, bwd_device_ms=(db1 + db2) / 2,
-             fwd_plain_ms=(pf1 + pf2) / 2, bwd_plain_ms=pb,
-             fwd_abs_err=abs_f, bwd_abs_err=abs_b, errs=errs,
+             reduce_ms=kr, reduce_device_ms=(dr1 + dr2) / 2,
+             reduce_library_ms=(lr1 + lr2) / 2,
+             fwd_plain_ms=(pf1 + pf2) / 2, bwd_plain_ms=pb, reduce_plain_ms=rp,
+             fwd_abs_err=abs_f, bwd_abs_err=abs_b, reduce_abs_err=red_abs,
+             reduce_vs_library=lib_err, errs=errs,
              turns=dict(fwd=[kf1, kf2], fwd_plain=[pf1, pf2], fwd_device=[df1, df2],
-                        bwd_device=[db1, db2]))
-    for key, nbytes in (("fwd", fwd_bytes), ("bwd", bwd_bytes)):
-        flops = _flops(key, c, evaluated, contributing)
+                        bwd_device=[db1, db2], reduce_device=[dr1, dr2],
+                        reduce_library=[lr1, lr2]))
+    for key, nbytes in (("fwd", fwd_bytes), ("bwd", bwd_bytes), ("reduce", red_bytes)):
+        flops = (s_count * row_values if key == "reduce"
+                 else _flops(key, c, evaluated, contributing))
         bound, by = _bound_ms(flops, nbytes)
         r.update({f"{key}_flops": flops, f"{key}_bytes": nbytes,
                   f"{key}_bound_ms": bound, f"{key}_bound_by": by,
                   f"{key}_share": bound / r[f"{key}_device_ms"]})
+    if red_abs != 0.0:
+        raise AssertionError(f"C {c} tile {tile}: the reduce kernel differs from its "
+                             f"plain version by {red_abs}")
     return r
 
 
@@ -584,8 +678,8 @@ def _print_times(tag: str, r: dict, build: dict, width: int, height: int, stats:
 
     ptxas = {row["kernel"]: row for row in build["ptxas"]}
     c, tile, t = r["channels"], r["tile"], r["turns"]
-    print(f"{tag} (C = {c}, {width}x{height}, tile {tile}, stats {stats}, "
-          f"{r['instances']} instances of {r['gaussians_used']} gaussians of "
+    print(f"{tag} (C = {c} in groups {r['groups']}, {width}x{height}, tile {tile}, stats "
+          f"{stats}, {r['instances']} instances of {r['gaussians_used']} gaussians of "
           f"{r['gaussians']}): pairs evaluated {r['pairs_evaluated']} (alpha >= 1/255 at "
           f"a live pixel), contributing {r['pairs_contributing']}, in the tile ranges "
           f"{r['instances'] * tile * tile}")
@@ -596,11 +690,20 @@ def _print_times(tag: str, r: dict, build: dict, width: int, height: int, stats:
           f"{r['fwd_bwd_ms']:.4f} ms; max abs err fwd "
           f"{r['fwd_abs_err']:.3e} bwd {r['bwd_abs_err']:.3e}")
     print(f"{tag}: kernels alone (launches back to back): fwd {r['fwd_device_ms']:.4f} ms "
-          f"(turns {t['fwd_device'][0]:.4f}/{t['fwd_device'][1]:.4f}), bwd "
-          f"{r['bwd_device_ms']:.4f} ms (turns {t['bwd_device'][0]:.4f}/"
-          f"{t['bwd_device'][1]:.4f})")
-    for key in ("fwd", "bwd"):
-        inst = kernels.instance_name(key, c)
+          f"(turns {t['fwd_device'][0]:.4f}/{t['fwd_device'][1]:.4f}), bwd (fill + rows + "
+          f"reduce) {r['bwd_device_ms']:.4f} ms (turns {t['bwd_device'][0]:.4f}/"
+          f"{t['bwd_device'][1]:.4f}); reduce alone {r['reduce_device_ms']:.4f} ms (turns "
+          f"{t['reduce_device'][0]:.4f}/{t['reduce_device'][1]:.4f}) vs index_add_ on the "
+          f"same rows {r['reduce_library_ms']:.4f} ms (turns {t['reduce_library'][0]:.4f}/"
+          f"{t['reduce_library'][1]:.4f}); reduce vs plain max abs {r['reduce_abs_err']!r}, "
+          f"vs index_add_ {r['reduce_vs_library']:.3e} normalized; reduce's wrapper one "
+          f"call at a time {r['reduce_ms']:.4f} ms; workspace {r['workspace_bytes']} B "
+          f"({r['ctas_per_tile']} CTAs per tile); the reduce moves "
+          f"{r['reduce_moved_bytes']} B (workspace, emission order, d_table for all "
+          f"{r['gaussians']}), {r['reduce_moved_bytes'] - r['reduce_bytes']} B beyond its "
+          f"bound's {r['reduce_bytes']} B")
+    for key in ("fwd", "bwd", "reduce"):
+        inst = kernels.instance_name(key, min(c, kernels.MAX_CHANNELS))
         pt = ptxas.get(inst, {})
         print(f"{tag} {key}: {r[f'{key}_flops'] / 1e9:.3f} GFLOP, "
               f"{r[f'{key}_bytes'] / 1e6:.1f} MB -> bound "
@@ -881,8 +984,7 @@ def phase7_disk_entry(config_path: str, dev, work: Path):
           f"{out['camera_ms_median']:.2f} ms per frame")
 
     # The --eval run.
-    tiled.FWD_STATS.reset()
-    tiled.BWD_STATS.reset()
+    _reset(tiled)
     t0 = time.time()
     slam = slam_torch.main(["--config", cfg_path, "--eval", "--max-frames", str(DISK_FRAMES),
                             "--checkpoint-every", "4", "--device", str(dev)])
@@ -939,8 +1041,7 @@ def phase7_disk_entry(config_path: str, dev, work: Path):
         raise AssertionError(f"phase7: no snapshot with a frame left to track after it "
                              f"(keyframes {fe.kf_indices})")
     ckpt = left[-1]
-    tiled.FWD_STATS.reset()
-    tiled.BWD_STATS.reset()
+    _reset(tiled)
     t0 = time.time()
     resumed = SLAM(load_config(cfg_path), lang_extractor=be.lang_extractor, device=dev)
     start = checkpoint.load_state(resumed, ckpt)
@@ -962,8 +1063,7 @@ def phase7_disk_entry(config_path: str, dev, work: Path):
     del resumed
 
     # The same frames, threaded.
-    tiled.FWD_STATS.reset()
-    tiled.BWD_STATS.reset()
+    _reset(tiled)
     t0 = time.time()
     threaded = SLAM(load_config(config_file("room_threaded.yaml", False,
                                             init_itr_num=SHORT_INIT_ITERS)),
@@ -1116,8 +1216,7 @@ def phase8_semantic_3d(config_path: str, dev, work: Path, slam, cfg_path: str,
 
     # (a) The slice's path: the map rendered through the blend forward
     # kernel into 15-d language maps, then the tools as a user runs them.
-    tiled.FWD_STATS.reset()
-    tiled.BWD_STATS.reset()
+    _reset(tiled)
     evaluation.eval_rendering(slam, save_dir=save_dir, tag="phase8")
     torch.cuda.synchronize()
     counts = _launch_counts(tiled)
@@ -1431,8 +1530,7 @@ def phase9_language_tools(config_path: str, dev, work: Path, weights: dict):
     rgb_dir = work / "disk" / "room" / "rgb"
     timers = Timers()
     on_dev = ["--device", str(dev)]
-    tiled.FWD_STATS.reset()
-    tiled.BWD_STATS.reset()
+    _reset(tiled)
 
     # (a) Labels of every 3rd disk frame at full width.
     labels = root / "labels"
@@ -1603,11 +1701,13 @@ def _forward_check(geom, feat, binning, *, width, height, tile, py_limit):
 
 
 def _path_counts(tiled, where: str, backward: bool = True, **extra) -> dict:
-    """The launch counts of a path just driven (every plain count 0)."""
+    """The launch counts of a path just driven (every plain count 0; a
+    reduce launch beside every backward launch)."""
     counts = _launch_counts(tiled)
-    if counts["fwd_launches"] == 0 or (backward and counts["bwd_launches"] == 0):
+    if (counts["fwd_launches"] == 0 or (backward and counts["bwd_launches"] == 0)
+            or counts["reduce_launches"] != counts["bwd_launches"]):
         raise AssertionError(f"{where}: a blend kernel was never launched: {counts}")
-    if counts["fwd_plain"] or counts["bwd_plain"]:
+    if counts["fwd_plain"] or counts["bwd_plain"] or counts["reduce_plain"]:
         raise AssertionError(f"{where}: a plain blend ran: {counts}")
     return dict(counts, **extra)
 
@@ -1615,6 +1715,16 @@ def _path_counts(tiled, where: str, backward: bool = True, **extra) -> dict:
 def _reset(tiled):
     tiled.FWD_STATS.reset()
     tiled.BWD_STATS.reset()
+    tiled.REDUCE_STATS.reset()
+
+
+def _same_run(x, y) -> dict:
+    """Two tracking_run results (view, exposure a, b, iterations, loss,
+    median depth, visibility) field by field: bit-equal or not."""
+    names = ("view", "exposure_a", "exposure_b", "iterations", "loss", "median_depth",
+             "visibility")
+    return {n: bool(torch.equal(torch.as_tensor(a), torch.as_tensor(b)))
+            for n, a, b in zip(names, x, y)}
 
 
 def _png_ok(path: Path, height: int, min_width: int) -> dict:
@@ -1623,6 +1733,33 @@ def _png_ok(path: Path, height: int, min_width: int) -> dict:
     img = np.asarray(Image.open(path))
     ok = img.shape[0] == height and img.shape[1] >= min_width and float(img.std()) > 5
     return {"shape": list(img.shape), "std": float(img.std()), "ok": bool(ok)}
+
+
+def _map_args(slam, dev):
+    """The arguments of one mapping_iteration on phase 3's last window (with
+    the pool's or the window's keyframes as the random picks, so every
+    slot is live): (window, picks, number of slots, args)."""
+    fe, be = slam.frontend, slam.backend
+    window = list(fe.current_window)
+    n_slots = be._n_slots()
+    pool = [i for i in be.viewpoints if i not in window]
+    picks = (pool or window)[:2]
+    cams = [be.viewpoints[i] for i in window]
+    f32 = dict(dtype=torch.float32, device=dev)
+    win = (torch.as_tensor(np.stack([c.r for c in cams]), **f32),
+           torch.as_tensor(np.stack([c.t for c in cams]), **f32),
+           torch.tensor([c.exposure_a for c in cams], **f32),
+           torch.tensor([c.exposure_b for c in cams], **f32))
+    slots = be.slot_inputs(window, picks, n_slots, win, lang_run=True)
+    pose_opt = np.zeros(n_slots, bool)
+    pose_opt[:min(be.pose_window, len(window))] = [c.uid != 0 for c in cams[:be.pose_window]]
+    exp_opt = torch.zeros(n_slots, dtype=torch.bool, device=dev)
+    exp_opt[:len(window)] = True
+    z3, zs = torch.zeros((n_slots, 3), **f32), torch.zeros(n_slots, **f32)
+    args = (be.params, be.opt, be.aux, slam.proj, *slots[:4], (z3, z3, zs, zs),
+            (z3, z3, zs, zs), zs, *slots[4:], pose_opt, exp_opt,
+            be._lrs(float(be.iteration_count + 1)), be.lamda_lang)
+    return window, picks, n_slots, args
 
 
 def phase10_multi_device(slam, dev, config_path: str, work: Path):
@@ -1772,13 +1909,13 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
           f"whole frame {frame_ms:.4f} ms")
 
     # (c) The banded tracking run of the last frame from the previous
-    # frame's pose, against tracking_run. The backward kernel's float
-    # atomics reorder its sums from run to run, and 55-60 Adam steps carry
-    # that into the last pose and loss, so two runs of tracking_run on the
-    # same inputs end as far apart as the banded run and tracking_run do.
-    # The two are held equal step by step instead: at every pose the banded
-    # run visited, the banded and the single-device render give the same
-    # loss and pose gradient.
+    # frame's pose, against tracking_run. Each is run twice and must repeat
+    # bit for bit (iterations, pose, exposure, loss): the backward sums in
+    # a fixed order. The banded run adds its bands' gradients in another
+    # order than the single-device render, and 55-60 Adam steps carry that
+    # rounding into the last pose, so the two are held equal step by step:
+    # at every pose the banded run visited, the banded and the
+    # single-device render give the same loss and pose gradient.
     cam, prev = camera(last), fe.cameras[last - 1]
     view0 = torch.as_tensor(prev.world_view_transform, device=dev)
     lrs = (fe.lr_trans, fe.lr_rot, 0.01)
@@ -1798,6 +1935,7 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
     torch.cuda.synchronize()
     banded_s = time.time() - t0
     out["launches"]["banded_tracking"] = _path_counts(tiled, "phase10 (c) banded tracking")
+    b2 = tile_shard.make_banded_tracking_run(mesh4, s, **kw)(*track_args)
     t0 = time.time()
     r = tracking_run(*track_args, settings=s, **kw)
     torch.cuda.synchronize()
@@ -1835,10 +1973,12 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
     gt_c = -cam.r_gt.T @ cam.t_gt
     errs_gt = [float(np.linalg.norm(centre(v).numpy() - gt_c)) for v in (b[0], r[0], r2[0])]
     out["banded_tracking"] = dict(
-        iters=[b[3], r[3], r2[3]], max_iters=kw["max_iters"],
-        loss=[float(b[4]), float(r[4]), float(r2[4])], poses_visited=len(visited),
+        iters=[b[3], r[3], r2[3], b2[3]], max_iters=kw["max_iters"],
+        loss=[float(b[4]), float(r[4]), float(r2[4]), float(b2[4])],
+        poses_visited=len(visited),
         step_loss_rdiff=step_loss_rdiff, step_loss_rtol=BANDED_LOSS_RTOL,
         step_grad_err=step_grad_err, step_grad_tol=GRAD_TOL,
+        single_repeats=_same_run(r, r2), banded_repeats=_same_run(b, b2),
         banded_vs_single=spread(b, r), single_vs_single=spread(r2, r),
         median_depth=[float(b[5]), float(r[5])],
         visibility_diff=int((b[6] != r[6]).sum()), err_to_gt_m=errs_gt,
@@ -1848,9 +1988,12 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
           f"tracking_run, at each of the {len(visited)} poses the banded run rendered: loss "
           f"relative {step_loss_rdiff:.3e} (bound {BANDED_LOSS_RTOL}), pose gradient "
           f"{step_grad_err:.3e} of its largest {grad_scale:.3e} (bound {GRAD_TOL}); whole runs "
-          f"(banded / tracking_run / tracking_run again): iterations {b[3]} / {r[3]} / {r2[3]} "
-          f"of {kw['max_iters']}, loss {float(b[4])!r} / {float(r[4])!r} / {float(r2[4])!r}, "
-          f"banded vs tracking_run " + json.dumps(bt["banded_vs_single"]) + ", tracking_run "
+          f"(banded / tracking_run / tracking_run again / banded again): iterations {b[3]} / "
+          f"{r[3]} / {r2[3]} / {b2[3]} of {kw['max_iters']}, loss {float(b[4])!r} / "
+          f"{float(r[4])!r} / {float(r2[4])!r} / {float(b2[4])!r}; bit for bit against "
+          f"itself: tracking_run {json.dumps(bt['single_repeats'])}, banded "
+          f"{json.dumps(bt['banded_repeats'])}; banded vs tracking_run "
+          + json.dumps(bt["banded_vs_single"]) + ", tracking_run "
           f"vs itself " + json.dumps(bt["single_vs_single"]) + f"; to GT "
           + " / ".join(f"{e:.5f}" for e in errs_gt) + f" m; visibility differs at "
           f"{bt['visibility_diff']}; {banded_s:.2f} / {single_s:.2f} s")
@@ -1858,25 +2001,7 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
     # (d) The data-parallel mapping iteration over MAP_SHARDS shards on the
     # last window (with the pool's or the window's keyframes as the random
     # picks, so every shard holds a live slot).
-    window = list(fe.current_window)
-    n_slots = be._n_slots()
-    pool = [i for i in be.viewpoints if i not in window]
-    picks = (pool or window)[:2]
-    cams = [be.viewpoints[i] for i in window]
-    f32 = dict(dtype=torch.float32, device=dev)
-    win = (torch.as_tensor(np.stack([c.r for c in cams]), **f32),
-           torch.as_tensor(np.stack([c.t for c in cams]), **f32),
-           torch.tensor([c.exposure_a for c in cams], **f32),
-           torch.tensor([c.exposure_b for c in cams], **f32))
-    slots = be.slot_inputs(window, picks, n_slots, win, lang_run=True)
-    pose_opt = np.zeros(n_slots, bool)
-    pose_opt[:min(be.pose_window, len(window))] = [c.uid != 0 for c in cams[:be.pose_window]]
-    exp_opt = torch.zeros(n_slots, dtype=torch.bool, device=dev)
-    exp_opt[:len(window)] = True
-    z3, zs = torch.zeros((n_slots, 3), **f32), torch.zeros(n_slots, **f32)
-    map_args = (be.params, be.opt, be.aux, proj, *slots[:4], (z3, z3, zs, zs),
-                (z3, z3, zs, zs), zs, *slots[4:], pose_opt, exp_opt,
-                be._lrs(float(be.iteration_count + 1)), be.lamda_lang)
+    window, picks, n_slots, map_args = _map_args(slam, dev)
     mesh2 = mesh_mod.named_mesh([dev] * MAP_SHARDS)
     _reset(tiled)
     got = mesh_mod.dp_mapping_iteration(s, mesh2, n_slots, False)(*map_args)
@@ -2027,6 +2152,8 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
         ("banded tracking loss at each pose", step_loss_rdiff <= BANDED_LOSS_RTOL),
         ("banded tracking gradient at each pose", step_grad_err <= GRAD_TOL),
         ("banded tracking converged", b[3] < kw["max_iters"]),
+        ("tracking_run repeats bit for bit", all(bt["single_repeats"].values())),
+        ("banded tracking repeats bit for bit", all(bt["banded_repeats"].values())),
         ("banded tracking to GT", errs_gt[0] < GATE_TRANS_ERR),
         ("band renders", band_idx == list(range(MAP_SHARDS))),
         ("sharded mapping", sharded_fn
@@ -2050,15 +2177,16 @@ DOMAIN_TILES, DOMAIN_F, DOMAIN_SEED = (8, 15, 24, 48, 64), (0, 1, 8, 23, 32, 60)
 WIDE_F, WIDE_TILES, PCA_COMPONENTS, PCA_REFINE_ITERS = 23, (32, 64), 23, 20
 
 
-def phase11_goldens(dev) -> dict:
-    """(a) kernel vs plain on the goldens over DOMAIN_TILES x DOMAIN_F."""
+def _golden_cases(dev, tiles, f_langs, where: str):
+    """Kernel vs plain on the five golden scenes at `tiles` x `f_langs`
+    (the channels past the goldens' 15 drawn from DOMAIN_SEED), integers
+    exact and phase 2's bounds: (cases, worst, worst per tile/F)."""
     from online_lang_splatting_tpu_torch.ops.raster import api, scenes, tiled
 
-    t0 = time.time()
     worst: dict = {}
     by_case: dict = {}
     n_cases = 0
-    for tile in DOMAIN_TILES:
+    for tile in tiles:
         for name in sorted(scenes.SCENES):
             scene = scenes.SCENES[name]()
             t = {k: torch.as_tensor(v, device=dev) for k, v in scene.items()
@@ -2072,23 +2200,32 @@ def phase11_goldens(dev) -> dict:
                                    settings=st, shs=t["shs"])
             gen = torch.Generator(device=dev).manual_seed(DOMAIN_SEED + n_cases)
             lang15 = t["language_features"]
-            extra = torch.randn((lang15.shape[0], max(DOMAIN_F) - lang15.shape[1]),
+            extra = torch.randn((lang15.shape[0], max(f_langs) - lang15.shape[1]),
                                 generator=gen, device=dev)
             lang_all = torch.cat([lang15, extra], 1)
-            for f_lang in DOMAIN_F:
+            for f_lang in f_langs:
                 geom, feat, binning = tiled.blend_inputs(
                     prep, lang_all[:, :f_lang].contiguous(), width=w, height=h, tile=tile)
                 g_feat = torch.randn((feat.shape[1], h, w), generator=gen, device=dev)
                 g_t = torch.randn((h, w), generator=gen, device=dev)
                 errs, _, _ = _compare_blend(geom, feat, binning, g_feat, g_t, width=w,
                                             height=h, tile=tile, stats=True)
-                _check(errs, f"phase11 (a) tile{tile}/{name}/F{f_lang}")
+                _check(errs, f"{where} tile{tile}/{name}/F{f_lang}")
                 key = f"tile{tile}/F{f_lang}"
                 by_case[key] = {k: max(by_case.get(key, {}).get(k, 0), v)
                                 for k, v in errs.items()}
                 for k, v in errs.items():
                     worst[k] = max(worst.get(k, 0), v)
                 n_cases += 1
+    return n_cases, worst, by_case
+
+
+def phase11_goldens(dev) -> dict:
+    """(a) kernel vs plain on the goldens over DOMAIN_TILES x DOMAIN_F."""
+    from online_lang_splatting_tpu_torch.ops.raster import scenes
+
+    t0 = time.time()
+    n_cases, worst, by_case = _golden_cases(dev, DOMAIN_TILES, DOMAIN_F, "phase11 (a)")
     out = dict(cases=n_cases, tiles=list(DOMAIN_TILES), f_lang=list(DOMAIN_F),
                worst=worst, by_case=by_case, seconds=time.time() - t0)
     print(f"[phase11] (a) {n_cases} cases ({len(scenes.SCENES)} golden scenes x tiles "
@@ -2106,30 +2243,23 @@ def phase11_wide(slam, dev, build) -> dict:
     """(b) both kernels' times on phase 3's map at C = WIDE_F + 4 (its
     language channels and seeded ones, from the last frame's pose) at
     WIDE_TILES, by phase 4's method."""
-    from online_lang_splatting_tpu_torch.ops.raster import api, tiled
-    from online_lang_splatting_tpu_torch.slam.renderer import activate
+    from online_lang_splatting_tpu_torch.ops.raster import tiled
 
     t0 = time.time()
-    s, fe, be = slam.settings, slam.frontend, slam.backend
+    s = slam.settings
     w, h = s.image_width, s.image_height
-    inputs = activate(be.params, be.aux.active)
-    view = torch.as_tensor(fe.cameras[max(fe.cameras)].world_view_transform, device=dev)
     gen = torch.Generator(device=dev).manual_seed(DOMAIN_SEED)
-    lang = inputs.language.detach()
-    extra = torch.randn((lang.shape[0], WIDE_F - lang.shape[1]), generator=gen, device=dev)
-    lang = torch.cat([lang, extra * lang.std()], 1).contiguous()
+    lang = None
     out: dict = {}
-    with torch.no_grad():
-        for tile in WIDE_TILES:
-            prep = api.project(inputs.xyz, inputs.opacity, inputs.scales, inputs.quats,
-                               viewmatrix=view, projmatrix=slam.proj,
-                               settings=s._replace(tile=tile), shs=inputs.shs)
-            geom, feat, binning = tiled.blend_inputs(prep, lang, width=w, height=h, tile=tile)
-            r = _kernel_times(geom, feat, binning, width=w, height=h, tile=tile, stats=True,
-                              seed=WIDE_F + tile, dev=dev)
-            _check(r["errs"], f"phase11 (b) map C{feat.shape[1]} tile{tile}")
-            out[tile] = r
-            _print_times(f"[phase11] (b) map tile {tile}", r, build, w, h, True)
+    for tile in WIDE_TILES:
+        prep, map_lang = _last_render(slam, dev, tile)
+        lang = _seeded_lang(map_lang, WIDE_F, gen) if lang is None else lang
+        geom, feat, binning = tiled.blend_inputs(prep, lang, width=w, height=h, tile=tile)
+        r = _kernel_times(geom, feat, binning, width=w, height=h, tile=tile, stats=True,
+                          seed=WIDE_F + tile, dev=dev)
+        _check(r["errs"], f"phase11 (b) map C{feat.shape[1]} tile{tile}")
+        out[tile] = r
+        _print_times(f"[phase11] (b) map tile {tile}", r, build, w, h, True)
     print(f"[phase11] (b) wall {time.time() - t0:.2f} s")
     return out
 
@@ -2231,6 +2361,264 @@ def phase11_pca_slice(dev, work: Path, weights: dict, disk_cfg: str, pca_model: 
     return out
 
 
+# Phase 12: the backward repeats bit for bit, and any F_lang runs on the
+# kernels. (a) on phase 3's last render at these language widths (C = 4,
+# 19, 27, 64, 128; the channels past the map's 15 seeded, as phase 11 (b)
+# draws them) the backward REPEATS times; (b) mapping iterations from one
+# state twice, and the main path over MAIN_REPEAT_FRAMES frames twice (its
+# map init cut to SHORT_INIT_ITERS, for time); (c) the goldens at these
+# tiles and widths past F = 60 (the channels past 15 seeded as phase 11
+# (a) draws them); (d) times at these widths on phase 3's map at its tile,
+# the workspace of per-instance rows at these tiles (C = 19), and with
+# --ab-other the backward against another checkout's (tools/blend_ab.py).
+REPEAT_F, REPEATS, TIMED_F = (0, 15, 23, 60, 124), 10, (60, 124)
+GROUP_TILES, GROUP_F, WORKSPACE_TILES = (15, 32, 64), (61, 64, 124, 252), (15, 32, 64)
+MAP_REPEAT_ITERS, MAIN_REPEAT_FRAMES = 20, 4
+AB_CASES = ("32:15", "32:0")
+
+
+def _seeded_lang(lang: torch.Tensor, f_lang: int, gen) -> torch.Tensor:
+    """The map's language channels cut or widened to f_lang, the added
+    ones drawn from `gen` at the map's spread."""
+    extra = max(f_lang - lang.shape[1], 0)
+    wide = torch.cat([lang, torch.randn((lang.shape[0], extra), generator=gen,
+                                        device=lang.device) * lang.std()], 1)
+    return wide[:, :f_lang].contiguous()
+
+
+def _last_render(slam, dev, tile=None):
+    from online_lang_splatting_tpu_torch.ops.raster import api
+    from online_lang_splatting_tpu_torch.slam.renderer import activate
+
+    s, fe, be = slam.settings, slam.frontend, slam.backend
+    inputs = activate(be.params, be.aux.active)
+    view = torch.as_tensor(fe.cameras[max(fe.cameras)].world_view_transform, device=dev)
+    with torch.no_grad():
+        prep = api.project(inputs.xyz, inputs.opacity, inputs.scales, inputs.quats,
+                           viewmatrix=view, projmatrix=slam.proj,
+                           settings=s._replace(tile=tile or s.tile), shs=inputs.shs)
+    return prep, inputs.language.detach()
+
+
+def phase12_kernels(slam, dev, build) -> dict:
+    """(a) the backward REPEATS times at each of REPEAT_F on phase 3's last
+    render: d_geom and d_feat bit-equal every time, and kernel vs plain at
+    phase 2's bounds; (d) times at TIMED_F by phase 4's method and the
+    workspace at WORKSPACE_TILES."""
+    from online_lang_splatting_tpu_torch.ops.raster import kernels, tiled
+
+    t0 = time.time()
+    s = slam.settings
+    w, h, tile = s.image_width, s.image_height, s.tile
+    prep, lang = _last_render(slam, dev)
+    gen = torch.Generator(device=dev).manual_seed(DOMAIN_SEED)
+    wide = _seeded_lang(lang, max(REPEAT_F), gen)
+    out: dict = {"repeats": {}, "times": {}, "workspace_bytes": {}}
+    for f_lang in REPEAT_F:
+        geom, feat, binning = tiled.blend_inputs(prep, wide[:, :f_lang].contiguous(),
+                                                 width=w, height=h, tile=tile)
+        c = feat.shape[1]
+        g = torch.Generator(device=dev).manual_seed(1000 + f_lang)
+        g_feat = torch.randn((c, h, w), generator=g, device=dev)
+        g_t = torch.randn((h, w), generator=g, device=dev)
+        args = (geom, feat, binning.s_gid, binning.starts, binning.tile_counts)
+        kw = dict(width=w, height=h, tile=tile)
+        fo = tiled.blend_forward(*args, **kw)
+        first = tiled.blend_backward(*args, g_feat, g_t, fo[0], fo[1],
+                                     emission=binning.emission, **kw)
+        equal = 0
+        for _ in range(REPEATS - 1):
+            again = tiled.blend_backward(*args, g_feat, g_t, fo[0], fo[1],
+                                         emission=binning.emission, **kw)
+            equal += int(torch.equal(again[0], first[0]) and torch.equal(again[1], first[1]))
+        if f_lang in TIMED_F:  # kernel vs plain inside the timing
+            r = _kernel_times(geom, feat, binning, width=w, height=h, tile=tile, stats=True,
+                              seed=f_lang, dev=dev)
+            out["times"][c] = r
+            errs = r["errs"]
+            _print_times(f"[phase12] (d) map C {c}", r, build, w, h, True)
+        else:
+            errs, _, _ = _compare_blend(geom, feat, binning, g_feat, g_t, width=w, height=h,
+                                        tile=tile, stats=True)
+        _check(errs, f"phase12 (a) map C{c}")
+        out["repeats"][c] = dict(bit_equal=equal + 1, of=REPEATS,
+                                 groups=[b - a for a, b in tiled.channel_groups(c)],
+                                 kernel_vs_plain=errs)
+        print(f"[phase12] (a) C = {c} (groups {out['repeats'][c]['groups']}): backward "
+              f"{REPEATS} times on phase 3's last render, bit-equal {equal + 1} of {REPEATS}; "
+              f"kernel vs plain " + json.dumps(errs))
+    for t in WORKSPACE_TILES:
+        prep_t, _ = _last_render(slam, dev, tile=t)
+        _, feat, binning = tiled.blend_inputs(prep_t, lang, width=w, height=h, tile=t)
+        out["workspace_bytes"][t] = dict(
+            instances=int(binning.s_gid.numel()), ctas_per_tile=kernels.ctas_per_tile(t),
+            channels=feat.shape[1],
+            bytes=4 * int(binning.s_gid.numel()) * kernels.ctas_per_tile(t) * (6 + feat.shape[1]))
+    print("[phase12] (d) workspace of per-instance rows on phase 3's last render (C = 19): "
+          + json.dumps(out["workspace_bytes"]))
+    out["seconds"] = time.time() - t0
+    bad = [c for c, r in out["repeats"].items() if r["bit_equal"] != REPEATS]
+    if bad:
+        raise AssertionError(f"phase12 (a): the backward did not repeat bit for bit at C {bad}")
+    return out
+
+
+def phase12_goldens(dev) -> dict:
+    """(c) kernel vs plain on the goldens at GROUP_TILES x GROUP_F, every
+    channel group a launch."""
+    from online_lang_splatting_tpu_torch.ops.raster import scenes, tiled
+
+    t0 = time.time()
+    _reset(tiled)
+    n_cases, worst, _ = _golden_cases(dev, GROUP_TILES, GROUP_F, "phase12 (c)")
+    counts = _launch_counts(tiled)
+    out = dict(cases=n_cases, tiles=list(GROUP_TILES), f_lang=list(GROUP_F), worst=worst,
+               launches=counts, seconds=time.time() - t0)
+    print(f"[phase12] (c) {n_cases} cases ({len(scenes.SCENES)} golden scenes x tiles "
+          f"{list(GROUP_TILES)} x F_lang {list(GROUP_F)}), kernel (channel groups) vs plain: "
+          f"worst " + json.dumps(worst) + f"; launches by C fwd {counts['fwd_by_channels']} "
+          f"bwd {counts['bwd_by_channels']} reduce {counts['reduce_by_channels']}; "
+          f"{out['seconds']:.2f} s")
+    want = {b - a for f in GROUP_F for a, b in tiled.channel_groups(f + 4)}
+    if set(counts["bwd_by_channels"]) != want or counts["bwd_plain"] != counts["fwd_plain"]:
+        raise AssertionError(f"phase12 (c): launches by C {counts}, groups {sorted(want)}")
+    return out
+
+
+def _tensors(x, prefix=""):
+    """(name, tensor) of every tensor in nested named tuples."""
+    if isinstance(x, torch.Tensor):
+        yield prefix, x
+    elif isinstance(x, tuple):
+        names = getattr(x, "_fields", range(len(x)))
+        for n, v in zip(names, x):
+            yield from _tensors(v, f"{prefix}.{n}" if prefix else str(n))
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        vals = [_clone(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def phase12_mapping(slam, dev) -> dict:
+    """(b) MAP_REPEAT_ITERS mapping iterations on phase 3's last window,
+    twice from the same state: Gaussian parameters, Adam moments, aux
+    state, slot poses and losses bit-equal."""
+    from online_lang_splatting_tpu_torch.ops.raster import tiled
+    from online_lang_splatting_tpu_torch.slam import backend as backend_mod
+
+    t0 = time.time()
+    s = slam.settings
+    _, _, _, args = _map_args(slam, dev)
+
+    def run():
+        a = list(_clone(args))
+        losses = []
+        for _ in range(MAP_REPEAT_ITERS):
+            res = backend_mod.mapping_iteration(*a, settings=s, init_mode=False)
+            # (params, opt, aux, r, t, ea, eb, pose state, occ_vis, loss)
+            a[0:3] = res[0:3]
+            a[4:8] = res[3:7]
+            a[8:11] = res[7]
+            losses.append(res[9])
+        return res, torch.stack(losses)
+
+    _reset(tiled)
+    one, loss1 = run()
+    torch.cuda.synchronize()
+    counts = _path_counts(tiled, "phase12 (b) mapping iterations")
+    two, loss2 = run()
+    names = ("params", "opt", "aux", "slot_r", "slot_t", "slot_ea", "slot_eb", "pose_state",
+             "occ_vis")
+    differ = [f"{n}.{k}" if k else n for n, x, y in zip(names, one, two)
+              for (k, a), (_, b) in zip(_tensors(x), _tensors(y)) if not torch.equal(a, b)]
+    if not torch.equal(loss1, loss2):
+        differ.append("loss")
+    out = dict(iterations=MAP_REPEAT_ITERS, differ=differ, loss=[float(loss1[-1]), float(loss2[-1])],
+               tensors=sum(1 for x in one[:9] for _ in _tensors(x)), launches=counts,
+               seconds=time.time() - t0)
+    print(f"[phase12] (b) {MAP_REPEAT_ITERS} mapping iterations twice from phase 3's state: "
+          f"{out['tensors']} tensors and the losses compared, differ: {differ or 'none'}; last "
+          f"loss {float(loss1[-1])!r} / {float(loss2[-1])!r}; launches " + json.dumps(counts)
+          + f"; {out['seconds']:.2f} s")
+    if differ:
+        raise AssertionError(f"phase12 (b): mapping iterations do not repeat: {differ}")
+    return out
+
+
+def phase12_main_repeat(config_path: str, dev, work: Path) -> dict:
+    """(b) the main path as a user runs it (slam_torch.main on phase 3's
+    config, the map init cut to SHORT_INIT_ITERS) over MAIN_REPEAT_FRAMES
+    frames, twice: trajectory, exposures, tracking iterations, keyframes,
+    the map and the last frame's PSNR bit-equal."""
+    import slam_torch
+    from online_lang_splatting_tpu_torch.ops import losses
+    from online_lang_splatting_tpu_torch.ops.raster import tiled
+    from online_lang_splatting_tpu_torch.slam.renderer import activate, render
+
+    t0 = time.time()
+    cfg = work / "main_repeat.yaml"
+    cfg.write_text(json.dumps({"inherit_from": str(config_path),
+                               "Training": {"init_itr_num": SHORT_INIT_ITERS}}))
+    runs = []
+    for _ in range(2):
+        _reset(tiled)
+        slam = slam_torch.main(["--config", str(cfg), "--max-frames", str(MAIN_REPEAT_FRAMES),
+                                "--device", str(dev)])
+        torch.cuda.synchronize()
+        counts = _path_counts(tiled, "phase12 (b) main path")
+        fe, be, st = slam.frontend, slam.backend, slam.settings
+        last = MAIN_REPEAT_FRAMES - 1
+        with torch.no_grad():
+            o = render(activate(be.params, be.aux.active),
+                       torch.as_tensor(fe.cameras[last].world_view_transform, device=dev),
+                       slam.proj, st)
+            color, *_ = slam.dataset[last]
+            psnr = losses.psnr(torch.clamp(o.color, 0.0, 1.0), torch.as_tensor(color, device=dev))
+        runs.append(dict(
+            poses={i: (c.r.copy(), c.t.copy(), c.exposure_a, c.exposure_b)
+                   for i, c in fe.cameras.items()},
+            track_iters=list(fe.track_iters), keyframes=list(fe.kf_indices),
+            params=[x.detach().clone() for x in be.params], psnr=psnr, fps=slam.fps,
+            launches=counts))
+        del slam, o
+        gc.collect()
+    a, b = runs
+    checks = {
+        "poses": a["poses"].keys() == b["poses"].keys() and all(
+            np.array_equal(a["poses"][i][0], b["poses"][i][0])
+            and np.array_equal(a["poses"][i][1], b["poses"][i][1])
+            and a["poses"][i][2:] == b["poses"][i][2:] for i in a["poses"]),
+        "track_iters": a["track_iters"] == b["track_iters"],
+        "keyframes": a["keyframes"] == b["keyframes"],
+        "map": all(torch.equal(x, y) for x, y in zip(a["params"], b["params"])),
+        "psnr": bool(torch.equal(a["psnr"], b["psnr"])),
+    }
+    out = dict(frames=MAIN_REPEAT_FRAMES, init_iters=SHORT_INIT_ITERS, checks=checks,
+               psnr=[float(r["psnr"]) for r in runs], fps=[r["fps"] for r in runs],
+               track_iters=a["track_iters"], keyframes=a["keyframes"],
+               launches=a["launches"], seconds=time.time() - t0)
+    print(f"[phase12] (b) slam_torch.main on {config_path} ({MAIN_REPEAT_FRAMES} frames, "
+          f"init {SHORT_INIT_ITERS} iterations) twice: bit-equal " + json.dumps(checks)
+          + f"; PSNR {out['psnr'][0]!r} / {out['psnr'][1]!r} dB, tracking iterations "
+          f"{a['track_iters']} / {b['track_iters']}, FPS {a['fps']:.4f} / {b['fps']:.4f}; "
+          f"{out['seconds']:.2f} s")
+    if not all(checks.values()):
+        raise AssertionError(f"phase12 (b): the main path does not repeat: {checks}")
+    return out
+
+
+def phase12_ab(other: str) -> list:
+    """(d) tools/blend_ab.py against another checkout's kernels."""
+    from online_lang_splatting_tpu_torch.tools import blend_ab
+
+    return blend_ab.main(["--other", other, "--cases", *AB_CASES])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=8)
@@ -2239,6 +2627,8 @@ def main(argv=None):
     ap.add_argument("--miou-stage", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--miou-work", help=argparse.SUPPRESS)
     ap.add_argument("--miou-device", help=argparse.SUPPRESS)
+    ap.add_argument("--ab-other", help="another checkout's root: phase 12 (d) runs "
+                    "tools/blend_ab.py against its kernels")
     args = ap.parse_args(argv)
     if args.miou_stage:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2274,8 +2664,19 @@ def main(argv=None):
         multi = timed("phase10", phase10_multi_device, slam, dev, args.config, Path(work))
     domain = {"goldens": timed("phase11a", phase11_goldens, dev),
               "wide": timed("phase11b", phase11_wide, slam, dev, build)}
+    repeat = {"kernels": timed("phase12a", phase12_kernels, slam, dev, build),
+              "mapping": timed("phase12b_mapping", phase12_mapping, slam, dev),
+              # Phase 10 (c) ran tracking_run and the banded run twice each.
+              "tracking": {k: multi["banded_tracking"][k] for k in (
+                  "single_repeats", "banded_repeats", "iters", "loss")}}
     del slam
     gc.collect()
+    repeat["goldens"] = timed("phase12c", phase12_goldens, dev)
+    with tempfile.TemporaryDirectory() as work:
+        repeat["main_path"] = timed("phase12b_main", phase12_main_repeat, args.config, dev,
+                                    Path(work))
+    if args.ab_other:
+        repeat["blend_ab"] = timed("phase12d_ab", phase12_ab, args.ab_other)
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
         miou, miou_extractor = timed("phase6", phase6_miou, args.config, dev, work)
@@ -2297,55 +2698,74 @@ def main(argv=None):
              "phase7_eval_run": disk["launches"],
              "phase8_semantic_3d": semantic["launches"],
              **{f"phase10_{path}": c for path, c in multi["launches"].items()},
-             "phase11_pca_slice": domain["pca_slice"]["launches"]}
+             "phase11_pca_slice": domain["pca_slice"]["launches"],
+             "phase12_mapping": repeat["mapping"]["launches"],
+             "phase12_main_path": repeat["main_path"]["launches"]}
     kernels = []
     r15 = times[15]
-    timed = list(times.values()) + list(domain["wide"].values())
-    for key, name, line in (("fwd", "blend_fwd", 405), ("bwd", "blend_bwd", 633)):
+    timed = (list(times.values()) + list(domain["wide"].values())
+             + list(repeat["kernels"]["times"].values()))
+    for key, name, line in (("fwd", "blend_fwd", 405), ("bwd", "blend_bwd", 633),
+                            ("reduce", "blend_reduce", 1091)):
         by_width: dict = {}
         for path, c in paths.items():
             for ch, n in c[f"{key}_by_channels"].items():
                 per_path = by_width.setdefault(kernel_lib.instance_name(key, int(ch)), {})
                 per_path[path] = per_path.get(path, 0) + n
+        widths = sorted({kernel_lib.instance_name(key, c)
+                         for c in range(kernel_lib.MIN_CHANNELS, kernel_lib.MAX_CHANNELS + 1)})
         row = {"name": name, "route": "cuda",
                "source": f"online_lang_splatting_tpu_torch/csrc/{name}.cu",
+               # The reduce kernel replaces the XLA scatter-add that summed
+               # the JAX kernel's per-instance rows (tiled.py:1087-1093).
                "replaces": f"online_lang_splatting_tpu/ops/raster/tiled.py:{line}",
                "launches": counts[f"{key}_launches"],
                "launches_by_channels": counts[f"{key}_by_channels"],
-               "launches_by_path": {path: c[f"{key}_launches"] for path, c in paths.items()},
+               "launches_by_path": {path: c.get(f"{key}_launches", 0)
+                                    for path, c in paths.items()},
                # Every compiled instance, with its launches per path (0 for
-               # an instance no path ran; phase 11 (a) compares each width
-               # the goldens reach with its plain version).
-               "launches_by_width": {
-                   kernel_lib.instance_name(key, w): by_width.get(
-                       kernel_lib.instance_name(key, w), {})
-                   for w, _ in kernel_lib.instances()},
+               # an instance no path ran; phases 11 (a) and 12 (c) compare
+               # each width the goldens reach with its plain version).
+               "launches_by_width": {inst: by_width.get(inst, {}) for inst in widths},
                "phase10_disentangled_by_channels":
                    multi["launches"]["disentangled"][f"{key}_by_channels"],
                "max_abs_err": r15[f"{key}_abs_err"],
                "channels": r15["channels"],
                # ms: one wrapper call with the host's enqueue, timed on its
-               # own; device_ms: the kernel alone, launches back to back;
+               # own (the reduce: kernels.launch_reduce); device_ms: the
+               # kernel alone, launches back to back (the backward: the
+               # rows' zero fill, the rows kernel and the reduce kernel);
                # share: bound_ms / device_ms.
-               "ms": r15[f"{key}_ms"], "device_ms": r15[f"{key}_device_ms"],
+               "ms": r15[f"{key}_ms"],
+               "device_ms": r15[f"{key}_device_ms"],
                "plain_ms": r15[f"{key}_plain_ms"],
                "bound_ms": r15[f"{key}_bound_ms"], "bound_by": r15[f"{key}_bound_by"],
                "share": r15[f"{key}_share"],
-               # No PyTorch call composites depth-sorted splats per tile.
-               "library_ms": None,
+               # No PyTorch call composites depth-sorted splats per tile;
+               # index_add_ sums the same rows per Gaussian (with float
+               # atomics: not repeatable).
+               "library_ms": r15["reduce_library_ms"] if key == "reduce" else None,
                # Phase 9's tools render nothing: counted, no launch.
                "not_launched_by": {"phase9_language_tools": tools["blend_launches"]},
-               # Phase 4 (C = 19, 4 at the main path's tile) and phase 11 (b)
-               # (C = 27 at tiles 32 and 64) on phase 3's map.
+               # Phase 4 (C = 19, 4 at the main path's tile), phase 11 (b)
+               # (C = 27 at tiles 32 and 64) and phase 12 (d) (C = 64, 128)
+               # on phase 3's map.
                "by_channels_tile": {f"C{r['channels']}/tile{r['tile']}": {
-                   k: r[f"{key}_{k}"] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                   k: r[f"{key}_{k}"] for k in ("device_ms", "plain_ms", "bound_ms",
                                                 "bound_by", "share", "flops", "bytes",
                                                 "abs_err")}
+                   | {"ms": r[f"{key}_ms"]}
+                   | ({} if key != "reduce"
+                      else {"library_ms": r["reduce_library_ms"],
+                            "workspace_bytes": r["workspace_bytes"],
+                            "moved_bytes": r["reduce_moved_bytes"]})
                    | {k: r[k] for k in ("pairs_evaluated", "pairs_contributing",
-                                        "gaussians_used")}
-                   | {"instance": kernel_lib.instance_name(key, r["channels"])}
+                                        "gaussians_used", "groups")}
+                   | {"instance": kernel_lib.instance_name(
+                       key, min(r["channels"], kernel_lib.MAX_CHANNELS))}
                    for r in timed},
-               "domain_goldens_worst": domain["goldens"]["worst"]}
+               "domain_goldens_worst": domain["goldens"]["worst"],
+               "groups_goldens_worst": repeat["goldens"]["worst"]}
         kernels.append(row)
     print(f"[done] card {smi}")
     print(json.dumps({"disk_entry": dict(disk, card=smi)}, default=float))
@@ -2355,6 +2775,7 @@ def main(argv=None):
     print(json.dumps({"language_tools": dict(tools, card=smi)}, default=float))
     print(json.dumps({"multi_device": dict(multi, card=smi)}, default=float))
     print(json.dumps({"domain": dict(domain, card=smi, phase_wall_s=walls)}, default=float))
+    print(json.dumps({"repeatability": dict(repeat, card=smi)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

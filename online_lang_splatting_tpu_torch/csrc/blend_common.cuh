@@ -1,4 +1,5 @@
-// Shared pieces of the two blend kernels (blend_fwd.cu, blend_bwd.cu).
+// Shared pieces of the blend kernels (blend_fwd.cu, blend_bwd.cu,
+// blend_reduce.cu).
 //
 // Layout, per Gaussian (row-major):
 //   geom  (P, 8)  float: x, y, conic a, b, c, opacity, 0, 0
@@ -201,8 +202,11 @@ __device__ __forceinline__ void load_batch(const float* __restrict__ geom,
 // runs on its EXACT instance when it has one (4, 7, 19), else on the
 // padded instance of the smallest width CP >= C. dispatch_width calls
 // f.template operator()<CP, EXACT>() for it, and returns
-// cudaErrorInvalidValue for a C outside the domain. kernels.py keeps the
-// same lists (tests/test_torch_kernel_build.py parses them from here).
+// cudaErrorInvalidValue for a C outside that range. One launch takes at
+// most MAX_CHANNELS channels; ops/raster/tiled.py runs a wider C (any
+// F_lang) as channel groups of at most MAX_CHANNELS, one launch each.
+// kernels.py keeps the same lists (tests/test_torch_kernel_build.py
+// parses them from here).
 constexpr int MIN_CHANNELS = 4, MAX_CHANNELS = 64;
 
 template <typename F>

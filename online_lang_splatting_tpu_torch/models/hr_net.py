@@ -12,10 +12,46 @@ mode, eps 1e-5). Module names follow the reference checkpoint's
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .convnext_clip import promote_call, resize_bilinear
 from .init import flax_init_
+
+
+class PhaseConvTranspose2d(nn.ConvTranspose2d):
+    """ConvTranspose2d(k=4, s=2, p=1), the same parameters, computed as four
+    2x2 convolutions (one per output phase) and interleaved: the JAX
+    package's PhaseConvTranspose2x. cuDNN runs a transposed convolution as
+    its backward-data pass, whose algorithms may sum with atomics, so the
+    map differed in its last bits from run to run on the card; forward
+    convolutions sum in a fixed order. cuDNN's transposed convolution with
+    `cudnn.deterministic` set for the call repeats too, but the flag is
+    process-wide and the whole head is slower that way on an H100
+    (tools/upsample_ab.py).
+
+    out[2y + r, 2x + s] = sum over taps in[iy, ix] w[ky, kx] with
+    ky = 2y + r - 2 iy + 1: phase r = 0 takes input rows (y - 1, y) with
+    kernel rows (3, 1), phase r = 1 rows (y, y + 1) with kernel rows (2, 0);
+    columns likewise."""
+
+    _TAPS = {0: ((3, 1), (1, 0)), 1: ((2, 0), (0, 1))}  # kernel taps, padding
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 4, stride=2, padding=1)
+
+    def forward(self, x):
+        phases = []
+        for r in (0, 1):
+            (ky, pad_y) = self._TAPS[r]
+            row = []
+            for s in (0, 1):
+                (kx, pad_x) = self._TAPS[s]
+                k = self.weight[:, :, list(ky)][:, :, :, list(kx)].transpose(0, 1)
+                row.append(F.conv2d(F.pad(x, (*pad_x, *pad_y)), k, self.bias))
+            phases.append(torch.stack(row, -1))  # (N, C, H, W, 2)
+        n, c, h, w, _ = phases[0].shape
+        return torch.stack(phases, 3).reshape(n, c, 2 * h, 2 * w)
 
 
 class ConvBNRelu(nn.Sequential):
@@ -24,7 +60,7 @@ class ConvBNRelu(nn.Sequential):
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  transpose: bool = False):
-        conv = (nn.ConvTranspose2d(cin, cout, 4, stride=2, padding=1) if transpose
+        conv = (PhaseConvTranspose2d(cin, cout) if transpose
                 else nn.Conv2d(cin, cout, kernel, padding=kernel // 2))
         super().__init__(conv, nn.BatchNorm2d(cout, eps=1e-5), nn.ReLU())
 

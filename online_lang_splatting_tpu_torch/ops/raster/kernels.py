@@ -7,11 +7,14 @@ shared library at first use, loaded with ctypes. The library lands in
 sources and flags, so an edited source or header rebuilds and an
 unchanged one is reused. Nothing here runs at import time.
 
-The kernels take any tile >= 1 and any channel count C = F + 4 from
-MIN_CHANNELS to MAX_CHANNELS. Each is compiled once per width: an EXACT
-instance for C = 4, 7 and 19 (the main path's widths, C fixed at compile
-time) and a padded instance for each of PADDED_WIDTHS, which runs any C up
-to its width (`instance_of`; `dispatch_width` in csrc/blend_common.cuh).
+The kernels take any tile >= 1 and, per launch, any channel count C =
+F + 4 from MIN_CHANNELS to MAX_CHANNELS (tiled.py runs a wider C as
+channel groups). The forward and backward are compiled once per width: an
+EXACT instance for C = 4, 7 and 19 (the main path's widths, C fixed at
+compile time) and a padded instance for each of PADDED_WIDTHS, which runs
+any C up to its width (`instance_of`; `dispatch_width` in
+csrc/blend_common.cuh). The reduce kernel is compiled once per count of
+values a lane sums (`reduce_instance`: 1, 2 or 3 of the 6 + C).
 
 `--fmad=false` keeps the kernels' float arithmetic operation for operation
 the same as the JAX reference's (no fused multiply-adds the source does not
@@ -51,8 +54,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {
     "blend_fwd": [_P] * 9 + [_I] * 6 + [_P],
     "blend_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    "blend_reduce": [_P] * 5 + [_I] * 3 + [_P],
     "blend_fwd_occupancy": [_I, _P],
     "blend_bwd_occupancy": [_I, _P],
+    "blend_reduce_occupancy": [_I, _P],
 }
 
 _lib = None
@@ -74,23 +79,41 @@ def _nvcc() -> str:
 def instance_of(channels: int) -> tuple[int, bool]:
     """(width, exact) of the compiled instance that runs `channels`."""
     if not MIN_CHANNELS <= channels <= MAX_CHANNELS:
-        raise ValueError(f"the blend kernels take {MIN_CHANNELS} to {MAX_CHANNELS} "
-                         f"channels (F_lang 0 to {MAX_CHANNELS - 4}), got {channels}")
+        raise ValueError(f"one launch of the blend kernels takes {MIN_CHANNELS} to "
+                         f"{MAX_CHANNELS} channels (tiled.channel_groups splits a wider "
+                         f"C), got {channels}")
     if channels in EXACT_WIDTHS:
         return channels, True
     return next(w for w in PADDED_WIDTHS if w >= channels), False
 
 
+def reduce_instance(channels: int) -> int:
+    """Values per lane of the reduce kernel instance that runs `channels`:
+    ceil((6 + C) / 32)."""
+    instance_of(channels)  # the domain check
+    return (6 + channels + 31) // 32
+
+
 def instance_name(kernel: str, channels: int) -> str:
-    """`instance_name("bwd", 27)` -> `bwd_kernel<28, false>`, as
-    `ptxas_summary` names it."""
+    """`instance_name("bwd", 27)` -> `bwd_kernel<28, false>`,
+    `instance_name("reduce", 27)` -> `reduce_kernel<2>`, as `ptxas_summary`
+    names them."""
+    if kernel == "reduce":
+        return f"reduce_kernel<{reduce_instance(channels)}>"
     width, exact = instance_of(channels)
     return f"{kernel}_kernel<{width}, {str(exact).lower()}>"
 
 
 def instances() -> list[tuple[int, bool]]:
-    """Every compiled (width, exact) instance."""
+    """Every compiled (width, exact) instance of the forward and backward."""
     return [(w, True) for w in EXACT_WIDTHS] + [(w, False) for w in PADDED_WIDTHS]
+
+
+def instance_names() -> list[str]:
+    """Every compiled kernel instance, as `ptxas_summary` names it."""
+    vpl = sorted({reduce_instance(c) for c in range(MIN_CHANNELS, MAX_CHANNELS + 1)})
+    return ([instance_name(k, c) for k in ("fwd", "bwd") for c, _ in instances()]
+            + [f"reduce_kernel<{v}>" for v in vpl])
 
 
 def nvcc_commands(nvcc: str, out: Path, csrc: Path = _CSRC
@@ -150,7 +173,13 @@ def build_library(csrc: Path = _CSRC, build_dir: Path = BUILD_DIR) -> tuple[ctyp
     info.update(seconds=time.time() - t0, path=str(so))
     lib = ctypes.CDLL(str(so))
     for name, argtypes in ARGTYPES.items():
-        fn = getattr(lib, name)
+        # Another checkout's sources may predate an entry point (the reduce
+        # kernel); this package's must have every one.
+        fn = getattr(lib, name, None)
+        if fn is None:
+            if csrc == _CSRC:
+                raise RuntimeError(f"{so} has no entry point {name}")
+            continue
         fn.argtypes = argtypes
         fn.restype = _I
     return lib, info
@@ -207,8 +236,9 @@ def ptxas_summary(log: str) -> list[dict]:
 
 
 def occupancy(kernel: str, channels: int) -> int:
-    """CTAs of the forward (`"fwd"`) or backward (`"bwd"`) kernel resident
-    on one SM of the current card, with their dynamic shared memory."""
+    """CTAs of the forward (`"fwd"`), backward (`"bwd"`) or reduce
+    (`"reduce"`) kernel resident on one SM of the current card, with their
+    dynamic shared memory."""
     blocks = ctypes.c_int(0)
     err = getattr(library(), f"blend_{kernel}_occupancy")(channels, ctypes.byref(blocks))
     _raise_on(err, f"blend_{kernel}_occupancy")
@@ -242,14 +272,38 @@ def launch_forward(geom, feat, s_gid, starts, tile_counts, feat_img, final_t,
     _raise_on(err, "blend_fwd launch")
 
 
+def ctas_per_tile(tile: int) -> int:
+    """K: the CTAs of a tile, each a square of at most 16x16 pixels
+    (csrc/blend_common.cuh: make_geometry)."""
+    quad = min(tile, 16)
+    return (-(-tile // quad)) ** 2
+
+
 def launch_backward(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
-                    feat_img, final_t, d_table, *, channels: int, width: int,
+                    feat_img, final_t, rows, *, channels: int, width: int,
                     height: int, tile: int, lib: ctypes.CDLL | None = None):
+    """The backward's rows kernel: per sorted instance and CTA of its tile,
+    the instance's 6 + C values summed over the CTA's pixels, into `rows`
+    (S, ctas_per_tile(tile), 6 + C), which must be zero. (Another
+    checkout's atomic form writes d_table (P, 6 + C) here instead.)"""
     lib = lib or library()
     with torch.cuda.device(feat.device):
         err = lib.blend_bwd(
             geom.data_ptr(), feat.data_ptr(), s_gid.data_ptr(), starts.data_ptr(),
             tile_counts.data_ptr(), g_feat.data_ptr(), g_t.data_ptr(),
-            feat_img.data_ptr(), final_t.data_ptr(), d_table.data_ptr(), channels,
+            feat_img.data_ptr(), final_t.data_ptr(), rows.data_ptr(), channels,
             width, height, tile, _stream(feat))
     _raise_on(err, "blend_bwd launch")
+
+
+def launch_reduce(rows, emit_inst, emit_start, emit_count, d_table, *,
+                  channels: int, lib: ctypes.CDLL | None = None):
+    """The reduce kernel: d_table (P, 6 + C) = the rows (S, K, 6 + C)
+    summed per Gaussian in emission order, each instance's K rows first."""
+    lib = lib or library()
+    with torch.cuda.device(rows.device):
+        err = lib.blend_reduce(
+            rows.data_ptr(), emit_inst.data_ptr(), emit_start.data_ptr(),
+            emit_count.data_ptr(), d_table.data_ptr(), channels, d_table.shape[0],
+            rows.shape[1], _stream(rows))
+    _raise_on(err, "blend_reduce launch")

@@ -2,19 +2,30 @@
 
 Replaces the two Pallas kernels of the JAX package,
 `ops/raster/tiled.py:_fwd_kernel` (front-to-back compositing) and
-`ops/raster/tiled.py:_bwd_kernel` (its gradient, plus the XLA scatter-add
-that reduced per-instance rows per Gaussian), with two CUDA kernels written
-for Hopper (`csrc/blend_fwd.cu`, `csrc/blend_bwd.cu`; their source notes
-say what bounds them and how they are laid out).
+`ops/raster/tiled.py:_bwd_kernel` (its gradient as per-instance rows),
+and the XLA scatter-add that summed those rows per Gaussian, with three
+CUDA kernels written for Hopper (`csrc/blend_fwd.cu`, `csrc/blend_bwd.cu`,
+`csrc/blend_reduce.cu`; their source notes say what bounds them and how
+they are laid out). The backward is the JAX form: per-instance rows written
+without atomics, then a sum per Gaussian in the binning's emission order
+(binning.EmissionOrder), so two runs on the same inputs give the same bits.
 
-Beside each kernel sits its plain PyTorch version with the same inputs and
-outputs (`blend_forward_plain`, `blend_backward_plain`): a loop over tiles,
-vectorised over (instances × pixels) with `cumprod`, walking each
-tile's range in chunks and stopping once every pixel has terminated. The wrappers
-`blend_forward` / `blend_backward` take the plain version only for CPU
-tensors; for CUDA tensors they launch the kernel or raise. The kernels
-take the JAX kernels' domain up to F = 60: any tile >= 1 and C = F + 4
-from kernels.MIN_CHANNELS to kernels.MAX_CHANNELS (4 to 64).
+Beside each kernel sits its plain PyTorch version: `blend_forward_plain`
+and `_backward_rows_plain`, a loop over tiles, vectorised over (instances
+× pixels) with `cumprod`, walking each tile's range in chunks and stopping
+once every pixel has terminated, and `reduce_rows_plain`, the reduce
+kernel's order bit for bit. `blend_backward_plain` (the rows summed by
+`index_add_`) is the reference the card's backward is held to. The
+wrappers `blend_forward` / `blend_backward` take the plain versions only
+for CPU tensors; for CUDA tensors they launch the kernels or raise. They
+take the JAX kernels' whole domain: any tile >= 1 and any F_lang. One
+launch takes C = F + 4 from kernels.MIN_CHANNELS to kernels.MAX_CHANNELS
+(4 to 64); a wider C runs as channel groups (`channel_groups`), one launch
+per group in both directions: each group composites its own columns, the
+first one alone with `stats`; the backward gives each group its columns'
+cotangents and the first one alone g_T (the blend's gradient is linear in
+the cotangents), adds the groups' geometry rows in group order and joins
+their feature rows.
 
 Inputs of both directions, per Gaussian:
   geom (P, 8) float: x, y, conic a, b, c, opacity, 0, 0
@@ -43,7 +54,7 @@ from dataclasses import dataclass, field
 import torch
 
 from . import config as C
-from .binning import bin_gaussians_sorted
+from .binning import EmissionOrder, bin_gaussians_sorted
 from .kernels import MAX_CHANNELS, MIN_CHANNELS
 from .oracle import BlendOutput
 from .preprocess import Preprocessed
@@ -83,6 +94,16 @@ class KernelStats:
 
 FWD_STATS = KernelStats()
 BWD_STATS = KernelStats()
+REDUCE_STATS = KernelStats()
+
+
+def channel_groups(channels: int) -> list[tuple[int, int]]:
+    """The feat columns [a, b) that one launch each takes: all of them up
+    to MAX_CHANNELS, else ceil(C / MAX_CHANNELS) groups of near-equal width
+    (each at least 32, so never below MIN_CHANNELS)."""
+    n = max(1, -(-channels // MAX_CHANNELS))
+    bounds = [channels * i // n for i in range(n + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -151,16 +172,16 @@ def _chunk_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
 
 def _tile_walk(s_gid, starts_h, counts_h, tiles_x, tile, width, height,
                device):
-    """Yield (pixel x, pixel y, [(chunk offset, chunk ids), ...]) for each
-    non-empty tile: its in-image pixels and its sorted instance range cut
-    into PLAIN_CHUNK-sized chunks."""
+    """Yield (first sorted index, pixel x, pixel y, [(chunk offset, chunk
+    ids), ...]) for each non-empty tile: its in-image pixels and its sorted
+    instance range cut into PLAIN_CHUNK-sized chunks."""
     for t, n in enumerate(counts_h):
         if n == 0:
             continue
         px, py = _tile_pixels(t, tiles_x, tile, width, height, device)
         ids = s_gid[starts_h[t]:starts_h[t] + n].long()
-        yield px, py, [(c0, ids[c0:c0 + PLAIN_CHUNK])
-                       for c0 in range(0, n, PLAIN_CHUNK)]
+        yield starts_h[t], px, py, [(c0, ids[c0:c0 + PLAIN_CHUNK])
+                                    for c0 in range(0, n, PLAIN_CHUNK)]
 
 
 def blend_forward_plain(geom, feat, s_gid, starts, tile_counts, *, width: int,
@@ -175,8 +196,8 @@ def blend_forward_plain(geom, feat, s_gid, starts, tile_counts, *, width: int,
     final_t = torch.ones((height, width), dtype=dtype, device=device)
     n_contrib = torch.zeros((height, width), dtype=torch.int32, device=device)
     n_touched = torch.zeros(p, dtype=torch.int32, device=device)
-    for px, py, chunks in _tile_walk(s_gid, starts.tolist(), tile_counts.tolist(),
-                                     tiles_x, tile, width, height, device):
+    for _start, px, py, chunks in _tile_walk(s_gid, starts.tolist(), tile_counts.tolist(),
+                                             tiles_x, tile, width, height, device):
         t_prev = torch.ones(px.shape[0], dtype=dtype, device=device)
         done = torch.zeros(px.shape[0], dtype=torch.bool, device=device)
         acc = torch.zeros((px.shape[0], c), dtype=dtype, device=device)
@@ -202,25 +223,27 @@ def blend_forward_plain(geom, feat, s_gid, starts, tile_counts, *, width: int,
     return feat_img, final_t, n_contrib, n_touched
 
 
-def blend_backward_plain(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
+def _backward_rows_plain(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
                          feat_img, final_t, *, width: int, height: int,
                          tile: int):
-    """Gradient of the blend walking forward: the suffix sums are the saved
-    per-pixel total Σ_f g_f·A_f + g_T·T_final minus the running inclusive
-    prefix of w·G (no division by T)."""
+    """Per sorted instance, its 6 + C gradient values summed over its tile's
+    pixels: rows (S, 6 + C), the JAX kernel's per-instance dgeom / dfeat.
+    The blend walked forward: the suffix sums are the saved per-pixel total
+    Σ_f g_f·A_f + g_T·T_final minus the running inclusive prefix of w·G
+    (no division by T). Rows past the point where a tile's pixels all
+    stopped are zero."""
     device, dtype = feat.device, feat.dtype
-    p, c = feat.shape
+    c = feat.shape[1]
     BWD_STATS.count(c, plain=True)
     tiles_x = (width + tile - 1) // tile
-    d_geom = torch.zeros((p, 6), dtype=dtype, device=device)
-    d_feat = torch.zeros((p, c), dtype=dtype, device=device)
-    for px, py, chunks in _tile_walk(s_gid, starts.tolist(), tile_counts.tolist(),
-                                     tiles_x, tile, width, height, device):
+    rows = torch.zeros((s_gid.shape[0], 6 + c), dtype=dtype, device=device)
+    for start, px, py, chunks in _tile_walk(s_gid, starts.tolist(), tile_counts.tolist(),
+                                            tiles_x, tile, width, height, device):
         g_pix = g_feat[:, py, px]                       # (C, pix)
         carry = (g_pix * feat_img[:, py, px]).sum(0) + g_t[py, px] * final_t[py, px]
         t_prev = torch.ones(px.shape[0], dtype=dtype, device=device)
         done = torch.zeros(px.shape[0], dtype=torch.bool, device=device)
-        for _c0, ids in chunks:
+        for c0, ids in chunks:
             g = geom[ids]
             a = _chunk_alpha(g, px, py, t_prev, done)
             gdot = feat[ids] @ g_pix                    # (n, pix)
@@ -238,20 +261,56 @@ def blend_backward_plain(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
             ca, cb, cc = g[:, 2:3], g[:, 3:4], g[:, 4:5]
             ddx = dpower * dx
             ddy = dpower * dy
-            rows = torch.stack([
+            i0 = start + c0
+            rows[i0:i0 + ids.shape[0]] = torch.cat([torch.stack([
                 -(ddx * ca + ddy * cb).sum(1),
                 -(ddy * cc + ddx * cb).sum(1),
                 -0.5 * (ddx * dx).sum(1),
                 -(ddx * dy).sum(1),
                 -0.5 * (ddy * dy).sum(1),
                 de.sum(1),
-            ], 1)
-            d_geom.index_add_(0, ids, rows)
-            d_feat.index_add_(0, ids, w @ g_pix.T)
+            ], 1), w @ g_pix.T], 1)
             t_prev, done = a["t_next"], a["done_next"]
             if bool(done.all()):
                 break
-    return d_geom, d_feat
+    return rows
+
+
+def blend_backward_plain(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
+                         feat_img, final_t, *, width: int, height: int,
+                         tile: int):
+    """The reference the backward kernels are held to: the plain rows
+    summed per Gaussian by `index_add_` (d_geom (P, 6), d_feat (P, C))."""
+    p, c = feat.shape
+    rows = _backward_rows_plain(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
+                                feat_img, final_t, width=width, height=height,
+                                tile=tile)
+    table = torch.zeros((p, 6 + c), dtype=feat.dtype, device=feat.device)
+    table.index_add_(0, s_gid.long(), rows)
+    return table[:, :6], table[:, 6:]
+
+
+def reduce_rows_plain(rows: torch.Tensor, emission: EmissionOrder,
+                      gaussians: int) -> torch.Tensor:
+    """The reduce kernel's plain version, in its order bit for bit: rows
+    (S, K, G) -> d_table (gaussians, G), each instance's K rows added left
+    to right, then a Gaussian's instances added in emission order onto
+    zero."""
+    s, k, g = rows.shape
+    REDUCE_STATS.count(g - 6, plain=True)
+    inst_rows = rows[:, 0]
+    for q in range(1, k):
+        inst_rows = inst_rows + rows[:, q]
+    table = torch.zeros((gaussians, g), dtype=rows.dtype, device=rows.device)
+    start, count = emission.start.long(), emission.count.long()
+    inst = emission.inst.long()
+    live = torch.nonzero(count > 0).squeeze(1)
+    j = 0
+    while live.numel():
+        table[live] = table[live] + inst_rows[inst[start[live] + j]]
+        j += 1
+        live = live[count[live] > j]
+    return table
 
 
 def blend_work(geom, feat, s_gid, starts, tile_counts, *, width: int,
@@ -265,8 +324,8 @@ def blend_work(geom, feat, s_gid, starts, tile_counts, *, width: int,
     same chunk walk as the plain versions."""
     tiles_x = (width + tile - 1) // tile
     evaluated = contributing = 0
-    for px, py, chunks in _tile_walk(s_gid, starts.tolist(), tile_counts.tolist(),
-                                     tiles_x, tile, width, height, feat.device):
+    for _start, px, py, chunks in _tile_walk(s_gid, starts.tolist(), tile_counts.tolist(),
+                                             tiles_x, tile, width, height, feat.device):
         t_prev = torch.ones(px.shape[0], dtype=feat.dtype, device=feat.device)
         done = torch.zeros(px.shape[0], dtype=torch.bool, device=feat.device)
         for _c0, ids in chunks:
@@ -287,12 +346,12 @@ def blend_work(geom, feat, s_gid, starts, tile_counts, *, width: int,
 
 
 def _check_cuda_inputs(tensors: dict, channels: int, tile: int):
-    """The kernels' domain (any tile >= 1; C = F_lang + 4 from MIN_CHANNELS
-    to MAX_CHANNELS), then each tensor's device, type and layout."""
-    if not MIN_CHANNELS <= channels <= MAX_CHANNELS:
-        raise ValueError(
-            f"the blend kernels take {MIN_CHANNELS} to {MAX_CHANNELS} channels "
-            f"(F_lang 0 to {MAX_CHANNELS - 4}), got {channels}")
+    """The kernels' domain (any tile >= 1; C = F_lang + 4 >= MIN_CHANNELS,
+    run in channel groups past MAX_CHANNELS), then each tensor's device,
+    type and layout."""
+    if channels < MIN_CHANNELS:
+        raise ValueError(f"the blend kernels take at least {MIN_CHANNELS} channels "
+                         f"(colour, depth), got {channels}")
     if tile < 1:
         raise ValueError(f"the blend kernels take tiles >= 1, got {tile}")
     device = None
@@ -309,9 +368,9 @@ def _check_cuda_inputs(tensors: dict, channels: int, tile: int):
             raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
-def blend_forward(geom, feat, s_gid, starts, tile_counts, *, width: int,
-                  height: int, tile: int, stats: bool = True,
-                  py_limit: int | None = None):
+def _forward_group(geom, feat, s_gid, starts, tile_counts, *, width, height,
+                   tile, stats, py_limit):
+    """One group's forward: the plain version on the CPU, else the kernel."""
     if not feat.is_cuda:
         return blend_forward_plain(geom, feat, s_gid, starts, tile_counts,
                                    width=width, height=height, tile=tile,
@@ -319,12 +378,6 @@ def blend_forward(geom, feat, s_gid, starts, tile_counts, *, width: int,
     from . import kernels
 
     p, c = feat.shape
-    _check_cuda_inputs(dict(
-        geom=(geom, torch.float32), feat=(feat, torch.float32),
-        s_gid=(s_gid, torch.int32), starts=(starts, torch.int32),
-        tile_counts=(tile_counts, torch.int32)), c, tile)
-    if geom.shape != (p, GEOM_COLS):
-        raise ValueError(f"geom must be ({p}, {GEOM_COLS}), got {tuple(geom.shape)}")
     dev = feat.device
     feat_img = torch.empty((c, height, width), dtype=torch.float32, device=dev)
     final_t = torch.empty((height, width), dtype=torch.float32, device=dev)
@@ -338,27 +391,75 @@ def blend_forward(geom, feat, s_gid, starts, tile_counts, *, width: int,
     return feat_img, final_t, n_contrib, n_touched
 
 
-def blend_backward(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
-                   feat_img, final_t, *, width: int, height: int, tile: int):
+def blend_forward(geom, feat, s_gid, starts, tile_counts, *, width: int,
+                  height: int, tile: int, stats: bool = True,
+                  py_limit: int | None = None):
+    p, c = feat.shape
+    if feat.is_cuda:
+        _check_cuda_inputs(dict(
+            geom=(geom, torch.float32), feat=(feat, torch.float32),
+            s_gid=(s_gid, torch.int32), starts=(starts, torch.int32),
+            tile_counts=(tile_counts, torch.int32)), c, tile)
+        if geom.shape != (p, GEOM_COLS):
+            raise ValueError(f"geom must be ({p}, {GEOM_COLS}), got {tuple(geom.shape)}")
+    kw = dict(width=width, height=height, tile=tile, py_limit=py_limit)
+    outs = [_forward_group(geom, feat[:, a:b].contiguous(), s_gid, starts, tile_counts,
+                           stats=stats and i == 0, **kw)
+            for i, (a, b) in enumerate(channel_groups(c))]
+    feat_img = outs[0][0] if len(outs) == 1 else torch.cat([o[0] for o in outs])
+    return (feat_img, *outs[0][1:])
+
+
+def _backward_group(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
+                    feat_img, final_t, emission, *, width, height, tile):
+    """One group's d_table (P, 6 + C): rows, then their sum per Gaussian in
+    emission order; the plain versions on the CPU, else the kernels."""
+    p, c = feat.shape
+    kw = dict(width=width, height=height, tile=tile)
     if not feat.is_cuda:
-        return blend_backward_plain(geom, feat, s_gid, starts, tile_counts,
-                                    g_feat, g_t, feat_img, final_t,
-                                    width=width, height=height, tile=tile)
+        rows = _backward_rows_plain(geom, feat, s_gid, starts, tile_counts, g_feat,
+                                    g_t, feat_img, final_t, **kw)
+        return reduce_rows_plain(rows[:, None], emission, p)
     from . import kernels
 
-    p, c = feat.shape
-    f32 = torch.float32
-    _check_cuda_inputs(dict(
-        geom=(geom, f32), feat=(feat, f32), s_gid=(s_gid, torch.int32),
-        starts=(starts, torch.int32), tile_counts=(tile_counts, torch.int32),
-        g_feat=(g_feat, f32), g_t=(g_t, f32), feat_img=(feat_img, f32),
-        final_t=(final_t, f32)), c, tile)
-    d_table = torch.zeros((p, 6 + c), dtype=f32, device=feat.device)
-    kernels.launch_backward(
-        geom, feat, s_gid, starts, tile_counts, g_feat, g_t, feat_img,
-        final_t, d_table, channels=c, width=width, height=height, tile=tile)
+    dev = feat.device
+    rows = torch.zeros((s_gid.shape[0], kernels.ctas_per_tile(tile), 6 + c),
+                       dtype=torch.float32, device=dev)
+    kernels.launch_backward(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
+                            feat_img, final_t, rows, channels=c, **kw)
     BWD_STATS.count(c, plain=False)
-    return d_table[:, :6], d_table[:, 6:]
+    d_table = torch.empty((p, 6 + c), dtype=torch.float32, device=dev)
+    kernels.launch_reduce(rows, emission.inst, emission.start, emission.count,
+                          d_table, channels=c)
+    REDUCE_STATS.count(c, plain=False)
+    return d_table
+
+
+def blend_backward(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
+                   feat_img, final_t, *, width: int, height: int, tile: int,
+                   emission: EmissionOrder):
+    """d_geom (P, 6), d_feat (P, C) of the blend, repeatable bit for bit:
+    `emission` is the binning's per-Gaussian order of the instances."""
+    p, c = feat.shape
+    if feat.is_cuda:
+        f32, i32 = torch.float32, torch.int32
+        _check_cuda_inputs(dict(
+            geom=(geom, f32), feat=(feat, f32), s_gid=(s_gid, i32),
+            starts=(starts, i32), tile_counts=(tile_counts, i32),
+            g_feat=(g_feat, f32), g_t=(g_t, f32), feat_img=(feat_img, f32),
+            final_t=(final_t, f32), emit_inst=(emission.inst, i32),
+            emit_start=(emission.start, i32), emit_count=(emission.count, i32)), c, tile)
+    kw = dict(width=width, height=height, tile=tile)
+    tables = [_backward_group(geom, feat[:, a:b].contiguous(), s_gid, starts, tile_counts,
+                              g_feat[a:b], g_t if i == 0 else torch.zeros_like(g_t),
+                              feat_img[a:b], final_t, emission, **kw)
+              for i, (a, b) in enumerate(channel_groups(c))]
+    d_geom = tables[0][:, :6]
+    for t in tables[1:]:
+        d_geom = d_geom + t[:, :6]
+    d_feat = (tables[0][:, 6:] if len(tables) == 1
+              else torch.cat([t[:, 6:] for t in tables], 1))
+    return d_geom, d_feat
 
 
 # ---------------------------------------------------------------------------
@@ -393,13 +494,14 @@ def blend_inputs(prep: Preprocessed, language_features, *, width: int,
 class _Blend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xy, conic, opacity, color, lang, depth, s_gid, starts,
-                tile_counts, width, height, tile, stats, py_limit=None):
+                tile_counts, emission, width, height, tile, stats, py_limit=None):
         geom, feat = pack_inputs(xy, conic, opacity, color, lang, depth)
         feat_img, final_t, n_contrib, n_touched = blend_forward(
             geom, feat, s_gid, starts, tile_counts, width=width,
             height=height, tile=tile, stats=stats, py_limit=py_limit)
         ctx.save_for_backward(geom, feat, s_gid, starts, tile_counts,
                               feat_img, final_t)
+        ctx.emission = emission
         ctx.meta = (width, height, tile, lang.shape[1])
         ctx.mark_non_differentiable(n_contrib, n_touched)
         return feat_img, final_t, n_contrib, n_touched
@@ -412,10 +514,10 @@ class _Blend(torch.autograd.Function):
         g_t = torch.zeros_like(final_t) if g_t is None else g_t.contiguous()
         d_geom, d_feat = blend_backward(
             geom, feat, s_gid, starts, tile_counts, g_feat, g_t, feat_img,
-            final_t, width=width, height=height, tile=tile)
+            final_t, width=width, height=height, tile=tile, emission=ctx.emission)
         return (d_geom[:, 0:2], d_geom[:, 2:5], d_geom[:, 5], d_feat[:, 0:3],
                 d_feat[:, 3:3 + f_lang], d_feat[:, 3 + f_lang],
-                None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None)
 
 
 def blend_tiled(prep: Preprocessed, language_features, bg, *, width: int,
@@ -435,8 +537,8 @@ def blend_tiled(prep: Preprocessed, language_features, bg, *, width: int,
     depth = torch.where(prep.valid, prep.depth, torch.zeros_like(prep.depth))
     feat_img, final_t, n_contrib, n_touched = _Blend.apply(
         prep.xy, prep.conic, prep.opacity, prep.color, lang, depth,
-        binning.s_gid, binning.starts, binning.tile_counts, width, height,
-        tile, stats, py_limit)
+        binning.s_gid, binning.starts, binning.tile_counts, binning.emission,
+        width, height, tile, stats, py_limit)
     return BlendOutput(
         color=feat_img[0:3] + final_t[None] * bg[:, None, None],
         language=feat_img[3:3 + f_lang],

@@ -228,7 +228,11 @@ def backproject_sample(image, depthmap, w2c, intrinsics, uniform,
     rgb = image.reshape(3, -1).T
     valid = z > 0
     score = torch.where(valid, uniform, torch.full_like(uniform, 2.0))
-    idx = torch.topk(-score, n_target).indices
+    # The n_target smallest scores, ties by pixel index as jax.lax.top_k
+    # breaks them; a stable sort picks the same pixels in the same order on
+    # every run (float32 draws tie at ~1 in 2^24, thousands of times a frame,
+    # and topk on the card orders ties differently from run to run).
+    idx = torch.sort(score, stable=True).indices[:n_target]
     return world[idx], rgb[idx], score[idx] < 1.5
 
 

@@ -11,14 +11,17 @@ for each `tile:F_lang` case:
 
 - the forward outputs (channels, final T, n_contrib, n_touched) compared
   bit for bit, this build against the other;
-- the backward's per-Gaussian sums compared normalized (float atomics
-  reorder them from run to run), beside this build against itself;
+- the backward's per-Gaussian sums (d_table) compared normalized, this
+  build against the other, and each build against itself: a build whose
+  library has `blend_reduce` writes per-instance rows and sums them per
+  Gaussian in a fixed order (two launches, the same bits every run); an
+  older one sums into d_table with float atomics, whose order varies;
 - each kernel alone timed back to back (CUDA events, 50 launches, turns
-  this, other, other, this).
+  this, other, other, this); the backward with its zero fill and, in the
+  rows form, the reduce launch.
 
 Prints the card's name and power limit, then one JSON line per case, and
-returns the cases. Both builds must take the `extern "C"` signatures of
-kernels.ARGTYPES.
+returns the cases.
 """
 
 from __future__ import annotations
@@ -97,26 +100,50 @@ def compare(lib_a, lib_b, *, tile: int, f_lang: int, gaussians: int, seed: int,
         kernels.launch_forward(*args, *out, stats=True, lib=lib, **kw)
         return out
 
+    em = binning.emission
+    p = geom.shape[0]
+    buffers = {}
+
     def backward(lib, fo):
-        d_table = torch.zeros((geom.shape[0], 6 + c), device=dev)
-        kernels.launch_backward(*args, g_feat, g_t, fo[0], fo[1], d_table, lib=lib, **kw)
+        """d_table of one build: rows + reduce, or the atomic form; the
+        buffers are allocated once per build and filled here."""
+        if lib not in buffers:
+            rows = (torch.empty((int(binning.s_gid.numel()), kernels.ctas_per_tile(tile),
+                                 6 + c), device=dev) if hasattr(lib, "blend_reduce") else None)
+            buffers[lib] = (rows, torch.empty((p, 6 + c), device=dev))
+        rows, d_table = buffers[lib]
+        if rows is None:
+            d_table.zero_()
+            kernels.launch_backward(*args, g_feat, g_t, fo[0], fo[1], d_table, lib=lib, **kw)
+        else:
+            rows.zero_()
+            kernels.launch_backward(*args, g_feat, g_t, fo[0], fo[1], rows, lib=lib, **kw)
+            kernels.launch_reduce(rows, em.inst, em.start, em.count, d_table, channels=c,
+                                  lib=lib)
         return d_table
 
     fa, fb = forward(lib_a), forward(lib_b)
-    da, da2, db = backward(lib_a, fa), backward(lib_a, fa), backward(lib_b, fa)
+    da = backward(lib_a, fa).clone()
+    da2 = backward(lib_a, fa).clone()
+    db = backward(lib_b, fa).clone()
+    db2 = backward(lib_b, fa).clone()
     torch.cuda.synchronize()
     row = dict(tile=tile, f_lang=f_lang, channels=c, instances=int(binning.s_gid.numel()),
+               this_rows_form=hasattr(lib_a, "blend_reduce"),
+               other_rows_form=hasattr(lib_b, "blend_reduce"),
                forward_bit_equal={k: bool(torch.equal(x, y)) for k, x, y in zip(
                    ("feat_img", "final_t", "n_contrib", "n_touched"), fa, fb)},
-               d_table_vs_other=_norm(da, db), d_table_vs_itself=_norm(da, da2))
+               d_table_vs_other=_norm(da, db),
+               this_bit_equal_to_itself=bool(torch.equal(da, da2)),
+               this_vs_itself=_norm(da, da2),
+               other_bit_equal_to_itself=bool(torch.equal(db, db2)),
+               other_vs_itself=_norm(db, db2))
     bufs = forward(lib_a)
-    d_table = torch.zeros((geom.shape[0], 6 + c), device=dev)
     times = {"fwd": [], "bwd": []}
     for lib in (lib_a, lib_b, lib_b, lib_a):
         times["fwd"].append(_device_ms(lambda: kernels.launch_forward(
             *args, *bufs, stats=True, lib=lib, **kw)))
-        times["bwd"].append(_device_ms(lambda: kernels.launch_backward(
-            *args, g_feat, g_t, fa[0], fa[1], d_table, lib=lib, **kw)))
+        times["bwd"].append(_device_ms(lambda: backward(lib, fa)))
     for key, (a1, b1, b2, a2) in times.items():
         row[f"{key}_device_ms"] = {"this": (a1 + a2) / 2, "other": (b1 + b2) / 2,
                                    "turns": [a1, b1, b2, a2]}

@@ -7,9 +7,10 @@
    normalized (tests/test_torch_raster.py's tolerances).
 2. `tiled.blend_work` at the new tiles against the brute-force walk of
    tests/test_torch_blend_work.py (exact).
-3. The wrapper's domain: C = F_lang + 4 from 4 to 64 and any tile >= 1 are
-   taken, C = 65 is refused by the check alone, and each C maps to the
-   compiled instance that runs it.
+3. The wrapper's domain: any C = F_lang + 4 >= 4 and any tile >= 1 are
+   taken (past 64 in channel groups), C = 3 and tile 0 are refused by the
+   check alone, and each C up to 64 maps to the compiled instance that
+   runs it.
 4. The slice: smoke.yaml's first frames as a Replica-v2 tree with 23-d
    label files (`language.labels_from_file`, `lang_code_size: 23`) and
    `raster_tile: 24`. Both packages' datasets read the same frames and
@@ -97,8 +98,8 @@ def test_wrapper_takes_the_domain(channels, tile):
 
 
 @pytest.mark.parametrize("channels,tile,what", [
-    (65, 16, "4 to 64 channels (F_lang 0 to 60), got 65"),
-    (3, 16, "4 to 64 channels (F_lang 0 to 60), got 3"),
+    (3, 16, "at least 4 channels (colour, depth), got 3"),
+    (0, 16, "at least 4 channels (colour, depth), got 0"),
     (27, 0, "tiles >= 1, got 0")])
 def test_wrapper_refuses_outside_the_domain(channels, tile, what):
     # No tensor is given: the domain alone decides.
@@ -107,14 +108,19 @@ def test_wrapper_refuses_outside_the_domain(channels, tile, what):
 
 
 def test_cpu_tensors_take_the_plain_path_past_the_domain():
-    """Past C = 64 a CPU tensor still renders (the plain version has no
-    limit); only the kernels have one."""
+    """Past C = 64 a CPU tensor renders in the kernels' channel groups, each
+    group through the plain version, and equals the one-pass plain
+    version."""
     scene, geom, _, binning = work_ref._inputs("alpha_clamp", 16)
     feat = torch.randn((geom.shape[0], 66), generator=torch.Generator().manual_seed(0))
+    args = (geom, feat, binning.s_gid, binning.starts, binning.tile_counts)
+    kw = dict(width=scene["width"], height=scene["height"], tile=16)
     tiled.FWD_STATS.reset()
-    out = tiled.blend_forward(geom, feat, binning.s_gid, binning.starts, binning.tile_counts,
-                              width=scene["width"], height=scene["height"], tile=16)
-    assert out[0].shape[0] == 66 and tiled.FWD_STATS.plain_by_channels == {66: 1}
+    out = tiled.blend_forward(*args, **kw)
+    assert out[0].shape[0] == 66 and tiled.FWD_STATS.plain_by_channels == {33: 2}
+    one = tiled.blend_forward_plain(*args, **kw)
+    assert_normalized(out[0], one[0], 1e-4, "feat_img")
+    assert all(torch.equal(a, b) for a, b in zip(out[1:], one[1:]))
 
 
 # ---------------------------------------------------------------------------

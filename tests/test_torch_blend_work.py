@@ -138,7 +138,8 @@ def test_launch_counters_by_channels_on_the_cpu_path():
         for _ in range(times):
             fo = tiled.blend_forward(*args, width=w, height=h, tile=16)
             tiled.blend_backward(*args, torch.ones_like(fo[0]), torch.ones_like(fo[1]),
-                                 fo[0], fo[1], width=w, height=h, tile=16)
+                                 fo[0], fo[1], width=w, height=h, tile=16,
+                                 emission=b.emission)
     expect = {f_lang + 4: times for f_lang, times in calls.items()}
     for stats in (tiled.FWD_STATS, tiled.BWD_STATS):
         assert stats.plain_by_channels == expect

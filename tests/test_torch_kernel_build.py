@@ -7,7 +7,8 @@
   sources, pointer for pointer and int for int (a mismatch would pass a
   pointer as a 32-bit int);
 - the ptxas summary that chip_smoke.py prints parses nvcc's `-Xptxas -v`
-  lines per kernel instance.
+  lines per kernel instance, the reduce kernel's included, and the reduce
+  kernel's instances are the values per lane its dispatch routes to.
 """
 
 import ctypes
@@ -38,7 +39,7 @@ def test_every_source_is_hashed(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(CSRC, csrc)
     names = sorted(p.name for p in csrc.iterdir())
-    assert {"blend_common.cuh", "blend_fwd.cu", "blend_bwd.cu"} <= set(names)
+    assert {"blend_common.cuh", "blend_fwd.cu", "blend_bwd.cu", "blend_reduce.cu"} <= set(names)
     seen = {kernels.library_path(csrc, tmp_path)}
     assert seen == {kernels.library_path(CSRC, tmp_path)}
     for name in names:
@@ -134,3 +135,57 @@ def test_dispatch_widths_match_the_source():
         if c not in kernels.EXACT_WIDTHS:
             routed = next((w for w in conds if c <= w), kernels.PADDED_WIDTHS[-1])
             assert routed == want[0]
+
+
+def _reduce_entry(vpl: int) -> str:
+    return (f"ptxas info    : Compiling entry function '_ZN5blend13reduce_kernelILi{vpl}"
+            f"EEEvPKfPKiS4_S4_Pfiii' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for _ZN5blend13reduce_kernelILi{vpl}"
+            f"EEEvPKfPKiS4_S4_Pfiii\n"
+            f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+            f"ptxas info    : Used {30 + vpl} registers, used 0 barriers, 392 bytes cmem[0]\n")
+
+
+def test_ptxas_summary_names_the_reduce_instances():
+    log = ("".join(_entry(k, w, e) for k in ("fwd", "bwd") for w, e in kernels.instances())
+           + "".join(_reduce_entry(v) for v in (1, 2, 3)))
+    rows = kernels.ptxas_summary(log)
+    assert [row["kernel"] for row in rows] == kernels.instance_names()
+    assert rows[-3:] == [{"kernel": f"reduce_kernel<{v}>", "stack": 0, "spill_stores": 0,
+                          "spill_loads": 0, "registers": 30 + v, "smem": 0} for v in (1, 2, 3)]
+    assert [kernels.instance_name("reduce", c) for c in (4, 26, 27, 58, 59, 64)] == [
+        "reduce_kernel<1>", "reduce_kernel<1>", "reduce_kernel<2>", "reduce_kernel<2>",
+        "reduce_kernel<3>", "reduce_kernel<3>"]
+
+
+def test_reduce_instances_match_the_source():
+    """dispatch_vpl in blend_reduce.cu routes G = 6 + C to ceil(G / 32)
+    values per lane, as kernels.reduce_instance does, over the same domain."""
+    src = (CSRC / "blend_reduce.cu").read_text()
+    body = src[src.index("cudaError_t dispatch_vpl("):]
+    body = body[:body.index("\n}\n")]
+    cases = {int(a): int(b) for a, b in re.findall(
+        r"case (\d+): return f\.template operator\(\)<(\d+)>\(\);", body)}
+    assert cases == {1: 1, 2: 2} and "operator()<MAX_VPL>()" in body
+    assert "(6 + C + 31) / 32" in body
+    assert "MAX_VPL = (6 + MAX_CHANNELS + 31) / 32" in src
+    for c in range(kernels.MIN_CHANNELS, kernels.MAX_CHANNELS + 1):
+        assert kernels.reduce_instance(c) == cases.get((6 + c + 31) // 32, 3)
+    for c in (kernels.MIN_CHANNELS - 1, kernels.MAX_CHANNELS + 1):
+        with pytest.raises(ValueError):
+            kernels.reduce_instance(c)
+
+
+def test_the_backward_sums_with_no_float_atomic():
+    """The rows and reduce kernels take every sum in an order the data
+    fixes: no atomicAdd in their sources."""
+    for name in ("blend_bwd.cu", "blend_reduce.cu"):
+        code = re.sub(r"//[^\n]*", "", (CSRC / name).read_text())
+        assert "atomic" not in code, name
+
+
+def test_ctas_per_tile_is_the_kernels_split():
+    """K = ceil(tile / quad)^2 with quad = min(tile, 16), as make_geometry
+    in blend_common.cuh splits a tile."""
+    assert [kernels.ctas_per_tile(t) for t in (1, 8, 15, 16, 17, 24, 32, 48, 64)] == [
+        1, 1, 1, 1, 4, 4, 4, 9, 16]

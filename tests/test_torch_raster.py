@@ -303,7 +303,8 @@ def test_blend_function_gradcheck_f64():
 
     def fn(*xs):
         feat_img, final_t, _, _ = tiled._Blend.apply(
-            *xs, bins.s_gid, bins.starts, bins.tile_counts, 24, 16, tile, True)
+            *xs, bins.s_gid, bins.starts, bins.tile_counts, bins.emission, 24, 16, tile,
+            True)
         return feat_img, final_t
 
     assert torch.autograd.gradcheck(fn, inputs, fast_mode=True)
