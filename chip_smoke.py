@@ -22,14 +22,18 @@ non-zero):
      per channel count);
   4. kernel and plain times at the main path's shapes (final map, last
      frame's pose), CUDA events, medians: one wrapper call at a time (the
-     host's enqueue included) and the kernel alone (launches back to
-     back); the pairs the blend must evaluate and those that composite
-     there (tiled.blend_work), and from them and the Gaussians the render
-     uses each kernel's bound (operations over the float32 peak or bytes
-     over the memory rate, the larger) and its share of it; the backward
-     alone is the rows' zero fill, the rows kernel and the reduce kernel,
-     the reduce kernel is also timed alone beside `index_add_` on the same
-     rows and held bit for bit to its plain version;
+     host's enqueue included) and the kernel alone (50 launches back to
+     back in a replayed CUDA graph); the pairs the blend must evaluate and
+     those that composite there (tiled.blend_work), and from them and the
+     Gaussians the render uses each kernel's bound (operations over the
+     float32 peak or bytes over the memory rate, the larger; d_table's P
+     rows written) and its share of it; the backward alone is the fill of
+     the rows' `stored` flags, the rows kernel and the reduce kernel; the
+     reduce kernel is also timed alone beside `index_add_` on the same rows
+     (the unstored ones zeroed) and held bit for bit to its plain version,
+     with its moved bytes, the stored slots' share of S x K, the
+     workspace's and the flags' bytes, and the instance lists (the longest,
+     and the share of instances in lists over 32);
   5. the extractor at full width: frame 0 (1200x680) -> 768^2 -> ConvNeXt-L
      -> HR head -> AE -> (192, 192, 15), unit-norm codes; the card against
      the port's own CPU path at 128^2 on the same weights; median times of
@@ -101,8 +105,11 @@ non-zero):
      launches counted on their own;
  11. the kernels' domain (any tile, C = F + 4 from 4 to 64): (a) (run after
      phase 10) kernel vs plain on the five golden scenes at tiles 8, 15,
-     24, 48 and 64 x F_lang 0, 1, 8, 23, 32 and 60 (the channels past the
-     goldens' 15 seeded), integers exact and phase 2's bounds; (b) phase
+     24, 48, 64, 80 and 144 x F_lang 0, 1, 8, 23, 32 and 60 (the channels
+     past the goldens' 15 seeded), integers exact and phase 2's bounds, and
+     the backward with its workspace filled with NaN and the plain reduce
+     on the kernel's own rows and flags bit for bit (as wherever kernel
+     and plain are compared at C <= 64); (b) phase
      3's map at C = 27 (its 15 channels and 8 seeded ones) at tiles 32 and
      64, both kernels timed by phase 4's method; (c) (run after phase 9)
      the extractor's 768-d maps of phase 7's 12 frames projected with phase
@@ -113,8 +120,11 @@ non-zero):
      supervision equal to the files, launches at C = 27 and no plain call;
  12. (run after phase 11 (b)) repeatability and channel groups: (a) on
      phase 3's last render the backward 10 times at C = 4, 19, 27, 64 and
-     128 (two channel groups), d_geom and d_feat bit-equal every time, and
-     kernel vs plain at phase 2's bounds; (b) 20 mapping iterations twice
+     128 (two channel groups), d_geom and d_feat bit-equal every time,
+     kernel vs plain at phase 2's bounds, and (one group) once more with
+     the workspace of rows filled with NaN, bit-equal; at C = 19 kernel vs
+     plain on the map at tiles 15, 32, 64, 80 and 144 (80 and 144: the
+     reduce's runtime K); (b) 20 mapping iterations twice
      from phase 3's state (parameters, Adam moments, aux state, slot poses,
      losses bit-equal), tracking_run and the banded run twice (phase 10
      (c)), and `slam_torch.main` on phase 3's config over 4 frames twice
@@ -123,9 +133,12 @@ non-zero):
      tiles 15, 32 and 64 x F_lang 61, 64, 124 and 252 (channel groups, the
      channels past 15 seeded), integers exact and phase 2's bounds; (d) both
      kernels at C = 64 and 128 on phase 3's map by phase 4's method, the
-     workspace of per-instance rows at tiles 15, 32 and 64, and with
-     --ab-other DIR `tools.blend_ab` against DIR's kernels (tile 32, F_lang
-     15 and 0);
+     workspace of per-instance rows, its flags and the stored share at
+     tiles 15, 32, 64, 80 and 144, and with --ab-other DIR `tools.blend_ab`
+     against DIR's kernels (tile 32, F_lang 15 and 0, on its seeded scene,
+     on a scene with 0.2 % large splats and on phase 3's last render; the
+     forward, and against an earlier rows form the backward's d_table, bit
+     for bit; graph-timed in turns);
 then one JSON line of the disk-entry numbers, one of the language numbers,
 one of the 3D-evaluation numbers, one of the language tools' numbers, one
 of the multi-device numbers, one of the domain numbers, one of the
@@ -242,11 +255,12 @@ def phase1_build():
     if spilled:
         raise AssertionError(f"kernel instances spill: {spilled}")
     # Every compiled instance, at its width's shared memory (the reduce
-    # kernel's at the widest C of its values per lane).
+    # kernel's at the widest C of each lane layout and each K it takes,
+    # 25 for the runtime-K instance).
     resident = {kernels.instance_name(k, c): kernels.occupancy(k, c)
                 for c, _ in kernels.instances() for k in ("fwd", "bwd")}
-    resident.update({kernels.instance_name("reduce", c): kernels.occupancy("reduce", c)
-                     for c in (26, 58, 64)})
+    resident.update({kernels.instance_name("reduce", c, k): kernels.occupancy("reduce", c, k)
+                     for c in (10, 26, 58, 64) for k in (*kernels.REDUCE_CTAS, 25)})
     print("[phase1] resident CTAs per SM (256 threads, dynamic shared memory "
           "included): " + json.dumps(resident))
     return {"ptxas": ptxas, "resident_ctas": resident}
@@ -259,10 +273,19 @@ def _norm_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
 
 
+def _bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements whose bits differ (NaN included)."""
+    return int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)).sum())
+
+
 def _compare_blend(geom, feat, binning, g_feat, g_t, *, width, height, tile,
                    stats):
-    """Kernel wrapper vs plain version on the same CUDA tensors."""
-    from online_lang_splatting_tpu_torch.ops.raster import tiled
+    """Kernel wrapper vs plain version on the same CUDA tensors; at C <= 64
+    (one launch per direction) also the backward once more with its
+    workspace of rows filled with NaN (`nan_workspace`) and the plain
+    reduce on that run's rows and flags (`reduce_vs_plain`), both held bit
+    for bit to the wrapper's d_table (counts of differing elements)."""
+    from online_lang_splatting_tpu_torch.ops.raster import kernels, tiled
 
     args = (geom, feat, binning.s_gid, binning.starts, binning.tile_counts)
     kw = dict(width=width, height=height, tile=tile)
@@ -277,6 +300,14 @@ def _compare_blend(geom, feat, binning, g_feat, g_t, *, width, height, tile,
     torch.cuda.synchronize()
     errs["d_geom"] = _norm_err(kb[0], pb[0])
     errs["d_feat"] = _norm_err(kb[1], pb[1])
+    if feat.shape[1] <= kernels.MAX_CHANNELS:
+        table = torch.cat(kb, 1)
+        nan_table, rows, stored = _backward_nan_workspace(
+            geom, feat, binning, g_feat, g_t, p, width=width, height=height, tile=tile,
+            dev=feat.device)
+        plain = tiled.reduce_rows_plain(rows, binning.emission, geom.shape[0], stored)
+        errs["nan_workspace"] = _bits_differ(nan_table, table)
+        errs["reduce_vs_plain"] = _bits_differ(plain, table)
     abs_err = max(_abs_err(k[0], p[0]), _abs_err(k[1], p[1]))
     abs_err_b = max(_abs_err(kb[0], pb[0]), _abs_err(kb[1], pb[1]))
     return errs, abs_err, abs_err_b
@@ -288,7 +319,7 @@ def _abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def _check(errs: dict, where: str):
     for key, v in errs.items():
-        if key in ("n_contrib", "n_touched", "radii"):
+        if key in ("n_contrib", "n_touched", "radii", "nan_workspace", "reduce_vs_plain"):
             ok = v == 0
         elif key.startswith("d_"):
             ok = v <= GRAD_TOL
@@ -361,6 +392,7 @@ def _launch_counts(tiled) -> dict:
     counts = {f"{k}_launches": v.launches for k, v in stats.items()}
     counts.update({f"{k}_plain": v.plain_calls for k, v in stats.items()})
     counts.update({f"{k}_by_channels": dict(v.launches_by_channels) for k, v in stats.items()})
+    counts["reduce_by_channels_ctas"] = dict(tiled.REDUCE_STATS.launches_by_channels_ctas)
     return counts
 
 
@@ -448,7 +480,7 @@ def phase3_main_path(config_path: str, frames: int, dev):
     summary = dict(wall_s=wall, fps=slam.fps, phase_times=slam.phase_times,
                    extract_s=be.lang_extract_s, keyframes=len(fe.kf_indices),
                    lang_l1=l1, lang_sup_mean=sup_mean, psnr=psnr, max_trans_err=max_err,
-                   launches=counts)
+                   launches=counts, tile=s.tile)
     return slam, counts, summary
 
 
@@ -498,8 +530,9 @@ def _bound_ms(flops: int, nbytes: int):
 def _time_back_to_back(fn, runs: int, repeats: int = 3) -> float:
     """Milliseconds per call of `runs` calls enqueued back to back between
     two CUDA events (median of `repeats`), after one warm-up: the device
-    time of a kernel whose launches the host enqueues faster than the card
-    runs them."""
+    time of a kernel only when the host enqueues its launches faster than
+    the card runs them (a short kernel's ctypes launch takes the host ~13
+    us; `profiling.graph_ms` leaves the host out)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -518,13 +551,17 @@ def _time_back_to_back(fn, runs: int, repeats: int = 3) -> float:
 def _kernel_times(geom, feat, binning, *, width, height, tile, stats, seed, dev) -> dict:
     """The kernels against their plain versions on one render's inputs
     (cotangents drawn from `seed`), then their times: one wrapper call at a
-    time (`ms`), the kernels alone with launches back to back (`device_ms`;
-    the backward is the zero fill of the rows, the rows kernel and the
+    time (`ms`), the kernels alone with launches back to back in a replayed
+    CUDA graph (`device_ms`;
+    the backward is the fill of the `stored` flags, the rows kernel and the
     reduce kernel; past 64 channels one launch per channel group), the
-    reduce kernel alone and `index_add_` on the same rows, the plain
-    versions', the pairs this data needs (tiled.blend_work) and from them
-    the bound and the share."""
+    reduce kernel alone and `index_add_` on the same rows (the workspace
+    with its unstored rows zeroed), the plain versions', the pairs this
+    data needs (tiled.blend_work) and from them the bound and the share;
+    the stored rows' share of the S x K slots, and the bytes the reduce
+    moves."""
     from online_lang_splatting_tpu_torch.ops.raster import kernels, tiled
+    from online_lang_splatting_tpu_torch.utils.profiling import graph_ms
 
     w, h = width, height
     c = feat.shape[1]
@@ -577,7 +614,9 @@ def _kernel_times(geom, feat, binning, *, width, height, tile, stats, seed, dev)
             out=(torch.empty((b - a, h, w), device=dev), torch.empty((h, w), device=dev),
                  torch.empty((h, w), dtype=torch.int32, device=dev),
                  torch.zeros(p, dtype=torch.int32, device=dev)),
-            rows=torch.zeros((s_count, k_cta, 6 + b - a), device=dev),
+            rows=torch.empty((s_count, k_cta, 6 + b - a), device=dev),
+            stored=torch.zeros((s_count, kernels.flag_stride(k_cta)), dtype=torch.uint8,
+                               device=dev),
             table=torch.empty((p, 6 + b - a), device=dev), stats=stats and i == 0))
     rest = (binning.s_gid, binning.starts, binning.tile_counts)
 
@@ -588,71 +627,101 @@ def _kernel_times(geom, feat, binning, *, width, height, tile, stats, seed, dev)
 
     def d_bwd():
         for g in g_args:
-            g["rows"].zero_()
+            g["stored"].zero_()
             kernels.launch_backward(geom, g["feat"], *rest, g["g_feat"], g["g_t"], g["img"],
-                                    fo[1], g["rows"], channels=g["channels"], **kw)
-            kernels.launch_reduce(g["rows"], em.inst, em.start, em.count, g["table"],
-                                  channels=g["channels"])
+                                    fo[1], g["rows"], g["stored"], channels=g["channels"],
+                                    **kw)
+            kernels.launch_reduce(g["rows"], g["stored"], binning.s_gid, em.inst, em.start,
+                                  em.count, g["table"], channels=g["channels"])
 
     def d_reduce():
         for g in g_args:
-            kernels.launch_reduce(g["rows"], em.inst, em.start, em.count, g["table"],
-                                  channels=g["channels"])
+            kernels.launch_reduce(g["rows"], g["stored"], binning.s_gid, em.inst, em.start,
+                                  em.count, g["table"], channels=g["channels"])
 
+    d_bwd()
+    torch.cuda.synchronize()
     # The library call that sums the same rows per Gaussian: index_add_
-    # (float atomics, not repeatable), timed here, used nowhere in the port.
+    # (float atomics, not repeatable) over the workspace with its unstored
+    # rows zeroed, timed here, used nowhere in the port.
     rep_ids = binning.s_gid.long().repeat_interleave(k_cta)
+    dense = [torch.where(g["stored"][:, :k_cta, None].bool(), g["rows"], 0.0).view(
+        -1, g["rows"].shape[2]) for g in g_args]
     lib_tables = [torch.zeros_like(g["table"]) for g in g_args]
 
     def l_reduce():
-        for g, t in zip(g_args, lib_tables):
-            t.index_add_(0, rep_ids, g["rows"].view(-1, g["rows"].shape[2]))
+        for d, t in zip(dense, lib_tables):
+            t.index_add_(0, rep_ids, d)
 
-    df1, db1 = _time_back_to_back(d_fwd, 50), _time_back_to_back(d_bwd, 50)
-    db2, df2 = _time_back_to_back(d_bwd, 50), _time_back_to_back(d_fwd, 50)
-    dr1, lr1 = _time_back_to_back(d_reduce, 50), _time_back_to_back(l_reduce, 50)
-    lr2, dr2 = _time_back_to_back(l_reduce, 50), _time_back_to_back(d_reduce, 50)
+    df1, db1 = graph_ms(d_fwd, 50), graph_ms(d_bwd, 50)
+    db2, df2 = graph_ms(d_bwd, 50), graph_ms(d_fwd, 50)
+    dr1, lr1 = graph_ms(d_reduce, 50), graph_ms(l_reduce, 50)
+    lr2, dr2 = graph_ms(l_reduce, 50), graph_ms(d_reduce, 50)
+    # The reduce launched from the host back to back, as the device time was
+    # taken before graphs (a short kernel's enqueue can bound it).
+    dr_eager = _time_back_to_back(d_reduce, 50)
     # The reduce's launch wrapper one call at a time, as `ms` of the others.
     kr = _time(d_reduce, 20)
-    rp = _time(lambda: [tiled.reduce_rows_plain(g["rows"], em, p) for g in g_args], 1)
+    rp = _time(lambda: [tiled.reduce_rows_plain(g["rows"], em, p, g["stored"])
+                        for g in g_args], 1)
     torch.cuda.synchronize()
     # The reduce kernel against its plain version on the kernel's own rows
-    # (the same order: bit for bit), and index_add_'s sums beside them.
-    red_abs = max(_abs_err(g["table"], tiled.reduce_rows_plain(g["rows"], em, p))
+    # and flags (the same order: bit for bit), and index_add_'s sums beside
+    # them.
+    red_abs = max(_abs_err(g["table"], tiled.reduce_rows_plain(g["rows"], em, p, g["stored"]))
                   for g in g_args)
     lib_err = max(_norm_err(g["table"], torch.zeros_like(g["table"]).index_add_(
-        0, rep_ids, g["rows"].view(-1, g["rows"].shape[2]))) for g in g_args)
+        0, rep_ids, d)) for g, d in zip(g_args, dense))
+    n_stored = sum(int(g["stored"][:, :k_cta].sum()) for g in g_args)
+    # The instance lists: a Gaussian's instances are a chain of adds.
+    count = em.count
+    long_lists = count > 32
 
     evaluated, contributing = tiled.blend_work(*args, **kw)
-    # Bytes each kernel must move, each read or written once: the rows of
-    # the Gaussians this render uses (geom and feat), the instance list and
-    # tile ranges, the images, and per Gaussian used its n_touched count
-    # (forward with stats) or its d_table row (backward). The backward's
-    # workspace of per-instance rows is not counted: the bound reads the
-    # work whatever implements it. The reduce's work is the scatter-add it
-    # replaces: one row of 6 + C values and its Gaussian id read per
-    # instance, one add per value, the used Gaussians' d_table rows
-    # written. What it moves beyond that (the K rows per instance of the
-    # workspace, the emission order, the unused Gaussians' rows) is this
-    # port's design, printed beside the bound and not counted in it.
+    # Bytes each kernel must move, each input read once and each output
+    # written once: the rows of the Gaussians this render uses (geom and
+    # feat), the instance list and tile ranges, the images, and the outputs:
+    # per Gaussian used its n_touched count (forward with stats), and
+    # d_table, a dense (P, 6 + C) output as JAX's `.at[ids].add` on zeros
+    # writes it, all P rows (backward and reduce). The backward's workspace
+    # of per-instance rows is not counted: the bound reads the work whatever
+    # implements it. The reduce's work is the scatter-add it replaces: one
+    # row of 6 + C values and its Gaussian id read per instance, one add
+    # per value, d_table written. What it moves beyond that (the stored
+    # rows past one per instance, the flags, the emission order) is this
+    # port's design, printed beside the bound and not counted in it, as is
+    # the earlier bound (only the used Gaussians' rows written).
     used = int(torch.unique(binning.s_gid).numel())
     in_bytes = (used * 4 * (tiled.GEOM_COLS + c)
                 + _nbytes(binning.s_gid, binning.starts, binning.tile_counts))
     fwd_bytes = in_bytes + _nbytes(*fo[:3]) + (4 * used if stats else 0)
-    bwd_bytes = in_bytes + _nbytes(g_feat, g_t, fo[0], fo[1]) + 4 * (6 + c) * used
+    bwd_images = in_bytes + _nbytes(g_feat, g_t, fo[0], fo[1])
+    bwd_bytes = bwd_images + 4 * (6 + c) * p
     workspace = sum(_nbytes(g["rows"]) for g in g_args)
+    stored_bytes = sum(_nbytes(g["stored"]) for g in g_args)
     row_values = sum(6 + b - a for a, b in groups)
-    red_bytes = 4 * row_values * (s_count + used) + _nbytes(binning.s_gid)
-    red_moved = (workspace + _nbytes(em.inst, em.start, em.count)
+    red_bytes = 4 * row_values * (s_count + p) + _nbytes(binning.s_gid)
+    # Read: the stored rows, every instance's flags (the kernel reads them
+    # for each instance of a Gaussian), the emission order; written: d_table.
+    red_moved = (4 * n_stored * row_values // len(groups) + stored_bytes
+                 + _nbytes(em.inst, em.start, em.count)
                  + sum(_nbytes(g["table"]) for g in g_args))
     r = dict(channels=c, tile=tile, groups=[b - a for a, b in groups],
              instances=s_count, demand=binning.num_instances, gaussians=p,
              gaussians_used=used, ctas_per_tile=k_cta, workspace_bytes=workspace,
+             stored_bytes=stored_bytes, stored_rows=n_stored // len(groups),
+             stored_share=n_stored / (len(groups) * s_count * k_cta),
              reduce_moved_bytes=red_moved,
+             gaussians_with_instances=int((count > 0).sum()),
+             max_emit_count=int(count.max()) if count.numel() else 0,
+             gaussians_over_32=int(long_lists.sum()),
+             long_list_share=int(count[long_lists].sum()) / max(s_count, 1),
+             reduce_bytes_used_rows=4 * row_values * (s_count + used) + _nbytes(binning.s_gid),
+             bwd_bytes_used_rows=bwd_images + 4 * (6 + c) * used,
              pairs_evaluated=evaluated, pairs_contributing=contributing,
              fwd_ms=(kf1 + kf2) / 2, bwd_ms=kb, fwd_bwd_ms=kfb,
              fwd_device_ms=(df1 + df2) / 2, bwd_device_ms=(db1 + db2) / 2,
-             reduce_ms=kr, reduce_device_ms=(dr1 + dr2) / 2,
+             reduce_ms=kr, reduce_device_ms=(dr1 + dr2) / 2, reduce_eager_ms=dr_eager,
              reduce_library_ms=(lr1 + lr2) / 2,
              fwd_plain_ms=(pf1 + pf2) / 2, bwd_plain_ms=pb, reduce_plain_ms=rp,
              fwd_abs_err=abs_f, bwd_abs_err=abs_b, reduce_abs_err=red_abs,
@@ -667,6 +736,10 @@ def _kernel_times(geom, feat, binning, *, width, height, tile, stats, seed, dev)
         r.update({f"{key}_flops": flops, f"{key}_bytes": nbytes,
                   f"{key}_bound_ms": bound, f"{key}_bound_by": by,
                   f"{key}_share": bound / r[f"{key}_device_ms"]})
+        if key != "fwd":  # the earlier bound, d_table's used rows only, for continuity
+            old, _ = _bound_ms(flops, r[f"{key}_bytes_used_rows"])
+            r.update({f"{key}_bound_ms_used_rows": old,
+                      f"{key}_share_used_rows": old / r[f"{key}_device_ms"]})
     if red_abs != 0.0:
         raise AssertionError(f"C {c} tile {tile}: the reduce kernel differs from its "
                              f"plain version by {red_abs}")
@@ -689,21 +762,34 @@ def _print_times(tag: str, r: dict, build: dict, width: int, height: int, stats:
           f"bwd {r['bwd_ms']:.4f} ms vs plain {r['bwd_plain_ms']:.1f} ms; fwd+bwd "
           f"{r['fwd_bwd_ms']:.4f} ms; max abs err fwd "
           f"{r['fwd_abs_err']:.3e} bwd {r['bwd_abs_err']:.3e}")
-    print(f"{tag}: kernels alone (launches back to back): fwd {r['fwd_device_ms']:.4f} ms "
-          f"(turns {t['fwd_device'][0]:.4f}/{t['fwd_device'][1]:.4f}), bwd (fill + rows + "
-          f"reduce) {r['bwd_device_ms']:.4f} ms (turns {t['bwd_device'][0]:.4f}/"
+    print(f"{tag}: kernels alone (launches back to back, CUDA graph): fwd "
+          f"{r['fwd_device_ms']:.4f} ms (turns {t['fwd_device'][0]:.4f}/"
+          f"{t['fwd_device'][1]:.4f}), bwd (flag fill + rows + reduce) "
+          f"{r['bwd_device_ms']:.4f} ms (turns {t['bwd_device'][0]:.4f}/"
           f"{t['bwd_device'][1]:.4f}); reduce alone {r['reduce_device_ms']:.4f} ms (turns "
-          f"{t['reduce_device'][0]:.4f}/{t['reduce_device'][1]:.4f}) vs index_add_ on the "
+          f"{t['reduce_device'][0]:.4f}/{t['reduce_device'][1]:.4f}; launched from the host "
+          f"back to back {r['reduce_eager_ms']:.4f} ms) vs index_add_ on the "
           f"same rows {r['reduce_library_ms']:.4f} ms (turns {t['reduce_library'][0]:.4f}/"
           f"{t['reduce_library'][1]:.4f}); reduce vs plain max abs {r['reduce_abs_err']!r}, "
           f"vs index_add_ {r['reduce_vs_library']:.3e} normalized; reduce's wrapper one "
-          f"call at a time {r['reduce_ms']:.4f} ms; workspace {r['workspace_bytes']} B "
-          f"({r['ctas_per_tile']} CTAs per tile); the reduce moves "
-          f"{r['reduce_moved_bytes']} B (workspace, emission order, d_table for all "
-          f"{r['gaussians']}), {r['reduce_moved_bytes'] - r['reduce_bytes']} B beyond its "
-          f"bound's {r['reduce_bytes']} B")
+          f"call at a time {r['reduce_ms']:.4f} ms")
+    print(f"{tag}: workspace {r['workspace_bytes']} B of rows, unfilled ({r['instances']} "
+          f"instances x {r['ctas_per_tile']} CTAs per tile), stored flags {r['stored_bytes']} B "
+          f"(the only fill); stored rows {r['stored_rows']} = {r['stored_share']:.4f} of the "
+          f"S x K slots; the reduce moves {r['reduce_moved_bytes']} B (stored rows, flags, "
+          f"emission order, d_table for all {r['gaussians']}), "
+          f"{r['reduce_moved_bytes'] - r['reduce_bytes']} B beyond its bound's "
+          f"{r['reduce_bytes']} B; the earlier bounds (d_table's {r['gaussians_used']} used rows "
+          f"only): reduce {r['reduce_bound_ms_used_rows']:.4f} ms (share "
+          f"{r['reduce_share_used_rows']:.3f}), bwd {r['bwd_bound_ms_used_rows']:.4f} ms "
+          f"(share {r['bwd_share_used_rows']:.3f})")
+    print(f"{tag}: instance lists: {r['gaussians_with_instances']} Gaussians with an "
+          f"instance, the longest {r['max_emit_count']} instances, {r['gaussians_over_32']} "
+          f"lists over 32 holding {r['long_list_share']:.4f} of the {r['instances']} "
+          f"instances")
     for key in ("fwd", "bwd", "reduce"):
-        inst = kernels.instance_name(key, min(c, kernels.MAX_CHANNELS))
+        inst = kernels.instance_name(key, min(c, kernels.MAX_CHANNELS),
+                                     kernels.ctas_per_tile(tile))
         pt = ptxas.get(inst, {})
         print(f"{tag} {key}: {r[f'{key}_flops'] / 1e9:.3f} GFLOP, "
               f"{r[f'{key}_bytes'] / 1e6:.1f} MB -> bound "
@@ -2173,7 +2259,8 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
 # tiles; (c) the 23-component PCA labels, written from the extractor's
 # 768-d maps of phase 7's frames and phase 9's PCA model, under
 # `slam_torch.main --eval` with PCA_REFINE_ITERS refinement iterations.
-DOMAIN_TILES, DOMAIN_F, DOMAIN_SEED = (8, 15, 24, 48, 64), (0, 1, 8, 23, 32, 60), 11
+# Tiles 80 and 144 (K = 25 and 81) run the reduce's runtime-K instance.
+DOMAIN_TILES, DOMAIN_F, DOMAIN_SEED = (8, 15, 24, 48, 64, 80, 144), (0, 1, 8, 23, 32, 60), 11
 WIDE_F, WIDE_TILES, PCA_COMPONENTS, PCA_REFINE_ITERS = 23, (32, 64), 23, 20
 
 
@@ -2372,9 +2459,13 @@ def phase11_pca_slice(dev, work: Path, weights: dict, disk_cfg: str, pca_model: 
 # the workspace of per-instance rows at these tiles (C = 19), and with
 # --ab-other the backward against another checkout's (tools/blend_ab.py).
 REPEAT_F, REPEATS, TIMED_F = (0, 15, 23, 60, 124), 10, (60, 124)
-GROUP_TILES, GROUP_F, WORKSPACE_TILES = (15, 32, 64), (61, 64, 124, 252), (15, 32, 64)
+GROUP_TILES, GROUP_F, WORKSPACE_TILES = (15, 32, 64), (61, 64, 124, 252), (15, 32, 64, 80, 144)
 MAP_REPEAT_ITERS, MAIN_REPEAT_FRAMES = 20, 4
 AB_CASES = ("32:15", "32:0")
+# and on 131072 Gaussians, 25000 of them visible, 0.2 % large splats (the
+# long instance lists of a sequential per-Gaussian reduce).
+AB_LARGE = ("--gaussians", "131072", "--visible", "25000", "--cases", "32:15:0.002",
+            "32:0:0.002", "16:15:0.002")
 
 
 def _seeded_lang(lang: torch.Tensor, f_lang: int, gen) -> torch.Tensor:
@@ -2400,11 +2491,57 @@ def _last_render(slam, dev, tile=None):
     return prep, inputs.language.detach()
 
 
+def _backward_nan_workspace(geom, feat, binning, g_feat, g_t, fo, *, width, height,
+                            tile, dev):
+    """d_table (P, 6 + C) of one backward launch (C <= 64) whose workspace
+    of rows is filled with NaN before the rows kernel runs (the reduce must
+    read none of the rows the rows kernel left unstored), with the rows
+    and the `stored` flags."""
+    from online_lang_splatting_tpu_torch.ops.raster import kernels
+
+    c, s_count = feat.shape[1], int(binning.s_gid.numel())
+    k = kernels.ctas_per_tile(tile)
+    rows = torch.full((s_count, k, 6 + c), float("nan"), device=dev)
+    stored = torch.zeros((s_count, kernels.flag_stride(k)), dtype=torch.uint8, device=dev)
+    d_table = torch.empty((geom.shape[0], 6 + c), device=dev)
+    em = binning.emission
+    kernels.launch_backward(geom, feat, binning.s_gid, binning.starts, binning.tile_counts,
+                            g_feat, g_t, fo[0], fo[1], rows, stored, channels=c,
+                            width=width, height=height, tile=tile)
+    kernels.launch_reduce(rows, stored, binning.s_gid, em.inst, em.start, em.count, d_table,
+                          channels=c)
+    return d_table, rows, stored
+
+
+def _stored_share(geom, feat, binning, *, width, height, tile, dev) -> dict:
+    """One rows-kernel launch on a render: the workspace's and the flags'
+    bytes, and the share of the S x K slots a CTA stored."""
+    from online_lang_splatting_tpu_torch.ops.raster import kernels, tiled
+
+    c, s_count = feat.shape[1], int(binning.s_gid.numel())
+    k = kernels.ctas_per_tile(tile)
+    args = (geom, feat, binning.s_gid, binning.starts, binning.tile_counts)
+    fo = tiled.blend_forward(*args, width=width, height=height, tile=tile)
+    gen = torch.Generator(device=dev).manual_seed(tile)
+    g_feat = torch.randn((c, height, width), generator=gen, device=dev)
+    g_t = torch.randn((height, width), generator=gen, device=dev)
+    rows = torch.empty((s_count, k, 6 + c), device=dev)
+    stored = torch.zeros((s_count, kernels.flag_stride(k)), dtype=torch.uint8, device=dev)
+    kernels.launch_backward(*args, g_feat, g_t, fo[0], fo[1], rows, stored, channels=c,
+                            width=width, height=height, tile=tile)
+    n_stored = int(stored[:, :k].sum())
+    return dict(instances=s_count, ctas_per_tile=k, channels=c, bytes=_nbytes(rows),
+                stored_bytes=_nbytes(stored), stored_rows=n_stored,
+                stored_share=n_stored / max(s_count * k, 1))
+
+
 def phase12_kernels(slam, dev, build) -> dict:
     """(a) the backward REPEATS times at each of REPEAT_F on phase 3's last
-    render: d_geom and d_feat bit-equal every time, and kernel vs plain at
-    phase 2's bounds; (d) times at TIMED_F by phase 4's method and the
-    workspace at WORKSPACE_TILES."""
+    render: d_geom and d_feat bit-equal every time, kernel vs plain at
+    phase 2's bounds, and (one launch per direction, C <= 64) once more with
+    its workspace filled with NaN, bit-equal; (d) times at TIMED_F by phase
+    4's method, and the workspace, the flags and the stored share at
+    WORKSPACE_TILES."""
     from online_lang_splatting_tpu_torch.ops.raster import kernels, tiled
 
     t0 = time.time()
@@ -2431,6 +2568,11 @@ def phase12_kernels(slam, dev, build) -> dict:
             again = tiled.blend_backward(*args, g_feat, g_t, fo[0], fo[1],
                                          emission=binning.emission, **kw)
             equal += int(torch.equal(again[0], first[0]) and torch.equal(again[1], first[1]))
+        nan_equal = None
+        if c <= kernels.MAX_CHANNELS:
+            nan_table, _, _ = _backward_nan_workspace(geom, feat, binning, g_feat, g_t, fo,
+                                                      dev=dev, **kw)
+            nan_equal = bool(torch.equal(nan_table, torch.cat(first, 1)))
         if f_lang in TIMED_F:  # kernel vs plain inside the timing
             r = _kernel_times(geom, feat, binning, width=w, height=h, tile=tile, stats=True,
                               seed=f_lang, dev=dev)
@@ -2442,22 +2584,39 @@ def phase12_kernels(slam, dev, build) -> dict:
                                         tile=tile, stats=True)
         _check(errs, f"phase12 (a) map C{c}")
         out["repeats"][c] = dict(bit_equal=equal + 1, of=REPEATS,
+                                 nan_workspace_bit_equal=nan_equal,
                                  groups=[b - a for a, b in tiled.channel_groups(c)],
                                  kernel_vs_plain=errs)
         print(f"[phase12] (a) C = {c} (groups {out['repeats'][c]['groups']}): backward "
               f"{REPEATS} times on phase 3's last render, bit-equal {equal + 1} of {REPEATS}; "
-              f"kernel vs plain " + json.dumps(errs))
+              f"with the workspace filled with NaN bit-equal {nan_equal}; kernel vs plain "
+              + json.dumps(errs))
+    out["map_tiles"] = {}
     for t in WORKSPACE_TILES:
         prep_t, _ = _last_render(slam, dev, tile=t)
-        _, feat, binning = tiled.blend_inputs(prep_t, lang, width=w, height=h, tile=t)
-        out["workspace_bytes"][t] = dict(
-            instances=int(binning.s_gid.numel()), ctas_per_tile=kernels.ctas_per_tile(t),
-            channels=feat.shape[1],
-            bytes=4 * int(binning.s_gid.numel()) * kernels.ctas_per_tile(t) * (6 + feat.shape[1]))
-    print("[phase12] (d) workspace of per-instance rows on phase 3's last render (C = 19): "
+        geom, feat, binning = tiled.blend_inputs(prep_t, lang, width=w, height=h, tile=t)
+        out["workspace_bytes"][t] = _stored_share(geom, feat, binning, width=w, height=h,
+                                                  tile=t, dev=dev)
+        # Kernel vs plain on the map at this tile, the NaN workspace and the
+        # plain reduce bit for bit (tiles 80 and 144: the runtime-K reduce).
+        g = torch.Generator(device=dev).manual_seed(2000 + t)
+        g_feat = torch.randn((feat.shape[1], h, w), generator=g, device=dev)
+        g_t = torch.randn((h, w), generator=g, device=dev)
+        errs, _, _ = _compare_blend(geom, feat, binning, g_feat, g_t, width=w, height=h,
+                                    tile=t, stats=True)
+        _check(errs, f"phase12 (a) map C{feat.shape[1]} tile {t}")
+        out["map_tiles"][t] = dict(errs, ctas_per_tile=kernels.ctas_per_tile(t),
+                                   instance=kernels.instance_name(
+                                       "reduce", feat.shape[1], kernels.ctas_per_tile(t)))
+    print("[phase12] (a) map C = 19 at tiles " + str(list(WORKSPACE_TILES)) + ": kernel vs "
+          "plain, NaN workspace and plain reduce (differing elements) "
+          + json.dumps(out["map_tiles"]))
+    print("[phase12] (d) workspace of per-instance rows (unfilled) and its stored flags (the "
+          "only fill) on phase 3's last render (C = 19): "
           + json.dumps(out["workspace_bytes"]))
     out["seconds"] = time.time() - t0
-    bad = [c for c, r in out["repeats"].items() if r["bit_equal"] != REPEATS]
+    bad = [c for c, r in out["repeats"].items()
+           if r["bit_equal"] != REPEATS or r["nan_workspace_bit_equal"] is False]
     if bad:
         raise AssertionError(f"phase12 (a): the backward did not repeat bit for bit at C {bad}")
     return out
@@ -2612,11 +2771,35 @@ def phase12_main_repeat(config_path: str, dev, work: Path) -> dict:
     return out
 
 
-def phase12_ab(other: str) -> list:
-    """(d) tools/blend_ab.py against another checkout's kernels."""
+def phase12_ab(other: str, slam, dev) -> list:
+    """(d) tools/blend_ab.py against another checkout's kernels on its
+    seeded scenes (AB_CASES, AB_LARGE) and on phase 3's last render at C =
+    19 and 4 (the main path's own traffic): the forward and, against an
+    earlier rows form (which zeroes its rows and reads them all), d_table
+    bit for bit; the times in turns."""
+    from online_lang_splatting_tpu_torch.ops.raster import kernels, tiled
     from online_lang_splatting_tpu_torch.tools import blend_ab
 
-    return blend_ab.main(["--other", other, "--cases", *AB_CASES])
+    rows = blend_ab.main(["--other", other, "--cases", *AB_CASES])
+    rows += blend_ab.main(["--other", other, *AB_LARGE])
+    lib_b, _ = kernels.build_library(Path(other) / "online_lang_splatting_tpu_torch" / "csrc")
+    s = slam.settings
+    w, h, tile = s.image_width, s.image_height, s.tile
+    prep, lang = _last_render(slam, dev)
+    for f_lang in (15, 0):
+        geom, feat, binning = tiled.blend_inputs(prep, lang[:, :f_lang].contiguous(),
+                                                 width=w, height=h, tile=tile)
+        row = dict(blend_ab.compare_inputs(kernels.library(), lib_b, geom, feat, binning,
+                                           width=w, height=h, tile=tile, seed=f_lang),
+                   scene="phase 3's last render", f_lang=f_lang)
+        print("[phase12] (d) blend_ab on phase 3's last render: " + json.dumps(row))
+        rows.append(row)
+    bad = [r for r in rows if not all(r["forward_bit_equal"].values())
+           or not r["this_bit_equal_to_itself"]
+           or (r["other_rows_form"] and not r["d_table_bit_equal_to_other"])]
+    if bad:
+        raise AssertionError(f"phase12 (d): blend_ab against {other} differs: {bad}")
+    return rows
 
 
 def main(argv=None):
@@ -2669,14 +2852,14 @@ def main(argv=None):
               # Phase 10 (c) ran tracking_run and the banded run twice each.
               "tracking": {k: multi["banded_tracking"][k] for k in (
                   "single_repeats", "banded_repeats", "iters", "loss")}}
+    if args.ab_other:
+        repeat["blend_ab"] = timed("phase12d_ab", phase12_ab, args.ab_other, slam, dev)
     del slam
     gc.collect()
     repeat["goldens"] = timed("phase12c", phase12_goldens, dev)
     with tempfile.TemporaryDirectory() as work:
         repeat["main_path"] = timed("phase12b_main", phase12_main_repeat, args.config, dev,
                                     Path(work))
-    if args.ab_other:
-        repeat["blend_ab"] = timed("phase12d_ab", phase12_ab, args.ab_other)
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
         miou, miou_extractor = timed("phase6", phase6_miou, args.config, dev, work)
@@ -2709,11 +2892,18 @@ def main(argv=None):
                             ("reduce", "blend_reduce", 1091)):
         by_width: dict = {}
         for path, c in paths.items():
-            for ch, n in c[f"{key}_by_channels"].items():
-                per_path = by_width.setdefault(kernel_lib.instance_name(key, int(ch)), {})
+            # The reduce's instance is fixed by C and K (the CTAs per tile),
+            # counted together; the others' by C.
+            launched = ([(*map(int, ck.split("/")), n)
+                         for ck, n in c["reduce_by_channels_ctas"].items()]
+                        if key == "reduce" else
+                        [(int(ch), None, n) for ch, n in c[f"{key}_by_channels"].items()])
+            for ch, k, n in launched:
+                per_path = by_width.setdefault(kernel_lib.instance_name(key, ch, k), {})
                 per_path[path] = per_path.get(path, 0) + n
-        widths = sorted({kernel_lib.instance_name(key, c)
-                         for c in range(kernel_lib.MIN_CHANNELS, kernel_lib.MAX_CHANNELS + 1)})
+        widths = sorted({kernel_lib.instance_name(key, c, k)
+                         for c in range(kernel_lib.MIN_CHANNELS, kernel_lib.MAX_CHANNELS + 1)
+                         for k in (*kernel_lib.REDUCE_CTAS, 25)})
         row = {"name": name, "route": "cuda",
                "source": f"online_lang_splatting_tpu_torch/csrc/{name}.cu",
                # The reduce kernel replaces the XLA scatter-add that summed
@@ -2734,8 +2924,10 @@ def main(argv=None):
                # ms: one wrapper call with the host's enqueue, timed on its
                # own (the reduce: kernels.launch_reduce); device_ms: the
                # kernel alone, launches back to back (the backward: the
-               # rows' zero fill, the rows kernel and the reduce kernel);
-               # share: bound_ms / device_ms.
+               # flags' fill, the rows kernel and the reduce kernel);
+               # share: bound_ms / device_ms, the bound with d_table's P
+               # rows written (bound_ms_used_rows: the earlier bound, the used
+               # rows only).
                "ms": r15[f"{key}_ms"],
                "device_ms": r15[f"{key}_device_ms"],
                "plain_ms": r15[f"{key}_plain_ms"],
@@ -2755,14 +2947,21 @@ def main(argv=None):
                                                 "bound_by", "share", "flops", "bytes",
                                                 "abs_err")}
                    | {"ms": r[f"{key}_ms"]}
+                   | ({} if key == "fwd" else {
+                       k: r[f"{key}_{k}"] for k in ("bound_ms_used_rows", "share_used_rows")})
                    | ({} if key != "reduce"
                       else {"library_ms": r["reduce_library_ms"],
                             "workspace_bytes": r["workspace_bytes"],
-                            "moved_bytes": r["reduce_moved_bytes"]})
+                            "stored_bytes": r["stored_bytes"],
+                            "stored_share": r["stored_share"],
+                            "moved_bytes": r["reduce_moved_bytes"],
+                            "max_emit_count": r["max_emit_count"],
+                            "long_list_share": r["long_list_share"]})
                    | {k: r[k] for k in ("pairs_evaluated", "pairs_contributing",
                                         "gaussians_used", "groups")}
                    | {"instance": kernel_lib.instance_name(
-                       key, min(r["channels"], kernel_lib.MAX_CHANNELS))}
+                       key, min(r["channels"], kernel_lib.MAX_CHANNELS),
+                       kernel_lib.ctas_per_tile(r["tile"]))}
                    for r in timed},
                "domain_goldens_worst": domain["goldens"]["worst"],
                "groups_goldens_worst": repeat["goldens"]["worst"]}

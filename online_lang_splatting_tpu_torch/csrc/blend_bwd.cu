@@ -7,11 +7,12 @@
 // and per CTA of its tile, the instance's d(x, y), d(conic a, b, c),
 // d(opacity) and d(feat) = d(color, language, depth) summed over the CTA's
 // pixels: rows (S, K, 6 + C), K = ceil(tile / 16)^2 CTAs per tile, as the
-// JAX kernel writes its per-instance dgeom / dfeat. blend_reduce.cu then
-// sums the rows per Gaussian in a fixed order (the XLA scatter-add of
-// tiled.py:1087-1093). No float atomic anywhere: every sum is taken in an
-// order fixed by the data, so two launches on the same inputs give the
-// same bits.
+// JAX kernel writes its per-instance dgeom / dfeat, and beside each row it
+// stores a flag byte, stored[instance * flag_stride(K) + k] = 1.
+// blend_reduce.cu then sums the stored rows per Gaussian in a fixed order
+// (the XLA scatter-add of tiled.py:1087-1093). No float atomic anywhere:
+// every sum is taken in an order fixed by the data, so two launches on the
+// same inputs give the same bits.
 //
 // It walks FORWARD, as the JAX kernel does: the suffix sum a contribution
 // needs is the saved per-pixel total sum_f g_f A_f + g_T T_final minus the
@@ -49,9 +50,21 @@
 //    SUB selected rows (8 x SUB x G floats; at SUB = 16 that is BATCH x G,
 //    so up to C = 64 two CTAs fit an SM); every SUB rows the CTA adds each
 //    row's 8 slots in warp order and stores the total to the instance's
-//    row in `rows`. Rows a CTA never reached (culled by its reach box, or
-//    past the point where all its pixels stopped) stay zero from the
-//    wrapper's fill.
+//    row in `rows` and sets the row's flag in `stored`; the rows a CTA
+//    never reached are left unwritten and unflagged. So only the S x
+//    flag_stride(K) flag bytes need a fill (0.22 MB at the main path's
+//    shapes, where the rows take 22.2 MB), and the reduce reads only the
+//    rows that were stored. A flag byte per (instance, CTA) has one writer
+//    and needs no atomic; an instance's K flags padded to whole words are
+//    read as words. The padded instances also leave unstored a row no warp
+//    contributed to (its reach box met the square but no pixel's alpha
+//    did, or every pixel had stopped): it is all +0, and adding an exact
+//    +0 leaves a float sum's bits unchanged (its one exception, -0 + +0,
+//    is washed out by the reduce's accumulator, which starts at +0), so
+//    skipping it is the same sum. The EXACT instances (C = 4, 7, 19) store
+//    such rows as zeros: with the per-row bookkeeping in their walk ptxas
+//    schedules it slower on the H100, by more than skipping the rows saves
+//    in both kernels (PERF.md).
 // 4. The gather: the next batch's rows arrive by cp.async into the other
 //    half of a double buffer while the current batch is walked.
 // 5. --fmad=false keeps the alpha / T / power chain bit-identical to the
@@ -136,7 +149,7 @@ constexpr int WARPS = BLOCK / 32;
 
 inline size_t bwd_smem(int C) {
   return sizeof(float) * (2 * BATCH * (GEOM_COLS + C) + WARPS * SUB * (6 + C)) +
-         sizeof(int) * (BATCH + WARPS);
+         sizeof(int) * (BATCH + 2 * WARPS);
 }
 
 // Resident CTAs the launch bound asks for: CP cotangents per thread.
@@ -149,7 +162,7 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
            const int* __restrict__ counts, const float* __restrict__ g_feat,
            const float* __restrict__ g_t, const float* __restrict__ out_feat,
            const float* __restrict__ out_t, float* __restrict__ rows,
-           TileGeometry tg, int channels) {
+           uint8_t* __restrict__ stored, TileGeometry tg, int channels) {
   const int C = EXACT ? CP : channels;
   const int G = 6 + C;
   extern __shared__ float4 smem4[];
@@ -158,6 +171,8 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
   float* s_part = s_feat + 2 * BATCH * C;                      // [WARPS][SUB][G]
   int* s_list = reinterpret_cast<int*>(s_part + WARPS * SUB * G);  // [BATCH]
   int* s_warp_count = s_list + BATCH;                              // [WARPS]
+  // Bit r of s_hits[w]: warp w contributed to the flush's row r.
+  unsigned* s_hits = reinterpret_cast<unsigned*>(s_warp_count + WARPS);  // [WARPS]
 
   const Quad quad = quad_of(tg);
   int px, py;
@@ -168,8 +183,9 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
   const float fx = (float)px, fy = (float)py;
   const float4 rect = rect_of(quad);
   const size_t hw = (size_t)tg.width * tg.height;
-  // This CTA's row of each instance: rows[(instance * K + k) * G + q].
-  const int K = tg.nq * tg.nq, k_cta = blockIdx.x % K;
+  // This CTA's row of each instance: rows[(instance * K + k) * G + q],
+  // its flag stored[instance * flag_stride(K) + k].
+  const int K = tg.nq * tg.nq, k_cta = blockIdx.x % K, ks = flag_stride(K);
 
   float T = 1.f, S = 0.f, gpix[CP];
 #pragma unroll
@@ -208,6 +224,7 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
     const int m = select_rows(bg, n, rect, s_list, s_warp_count);
     for (int k0 = 0; k0 < m; k0 += SUB) {
       const int kn = min(SUB, m - k0);
+      unsigned hits = 0;
       for (int r = 0; r < kn; ++r) {
         const int j = s_list[k0 + r];
         float geo[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -257,21 +274,30 @@ bwd_kernel(const float* __restrict__ geom, const float* __restrict__ feat,
           }
         }
         float* slot = s_part + (warp * SUB + r) * G;
-        if (__any_sync(FULL, any)) {
+        const bool hit = __any_sync(FULL, any);
+        if constexpr (!EXACT) hits |= (unsigned)hit << r;
+        if (hit) {
           reduce_values<CP>(geo, w, any, gpix, lane, G, slot);
         } else {
           for (int q = lane; q < G; q += 32) slot[q] = 0.f;
         }
       }
-      // The kn rows' totals over the warps, added in warp order.
+      // The kn rows' totals over the warps, added in warp order; in a padded
+      // instance a row no warp contributed to is left unstored.
+      if (lane == 0) s_hits[warp] = hits;
       __syncthreads();
+      unsigned any_hit = 0;
+#pragma unroll
+      for (int wi = 0; wi < WARPS; ++wi) any_hit |= s_hits[wi];
       for (int e = threadIdx.x; e < kn * G; e += BLOCK) {
         const int r = e / G, q = e - r * G;
+        if (!EXACT && ((any_hit >> r) & 1u) == 0) continue;
         float tot = s_part[r * G + q];
 #pragma unroll
         for (int wi = 1; wi < WARPS; ++wi) tot += s_part[(wi * SUB + r) * G + q];
         const size_t inst = (size_t)start + b0 + s_list[k0 + r];
         rows[(inst * K + k_cta) * G + q] = tot;
+        if (q == 0) stored[inst * ks + k_cta] = 1;
       }
       __syncthreads();  // the slots are free again
     }
@@ -285,13 +311,15 @@ struct BwdLaunch {
   const int *s_gid, *starts, *counts;
   const float *g_feat, *g_t, *out_feat, *out_t;
   float* rows;
+  uint8_t* stored;
   TileGeometry tg;
   int C;
 
   template <int CP, bool EXACT>
   cudaError_t operator()() const {
     return launch(bwd_kernel<CP, EXACT>, num_ctas(tg), bwd_smem(C), s, geom, feat,
-                  s_gid, starts, counts, g_feat, g_t, out_feat, out_t, rows, tg, C);
+                  s_gid, starts, counts, g_feat, g_t, out_feat, out_t, rows, stored,
+                  tg, C);
   }
 };
 
@@ -308,20 +336,23 @@ struct BwdOccupancy {
 }  // namespace blend
 
 // Plain C entry point for ctypes. rows (S, K, 6 + C), K = ceil(tile / 16)^2
-// (1 for a tile <= 16), must be zeroed by the caller. Returns the launch's
-// error code, then cudaGetLastError() (cudaErrorInvalidValue for a channel
-// count outside 4..64 or a tile < 1).
+// (1 for a tile <= 16), need no fill: the kernel writes the rows its CTAs
+// store and sets their flags in `stored` (S, flag_stride(K)) bytes, which
+// must be zeroed by the caller; the reduce kernel reads only flagged rows.
+// Returns the launch's error code, then cudaGetLastError()
+// (cudaErrorInvalidValue for a channel count outside 4..64 or a tile < 1).
 extern "C" int blend_bwd(const float* geom, const float* feat,
                          const int* s_gid, const int* starts,
                          const int* counts, const float* g_feat,
                          const float* g_t, const float* out_feat,
-                         const float* out_t, float* rows, int channels,
-                         int width, int height, int tile, void* stream) {
+                         const float* out_t, float* rows, unsigned char* stored,
+                         int channels, int width, int height, int tile,
+                         void* stream) {
   using namespace blend;
   TileGeometry tg;
   if (!make_geometry(width, height, tile, &tg)) return (int)cudaErrorInvalidValue;
   const BwdLaunch b{(cudaStream_t)stream, geom, feat, s_gid, starts, counts, g_feat,
-                    g_t, out_feat, out_t, rows, tg, channels};
+                    g_t, out_feat, out_t, rows, stored, tg, channels};
   const cudaError_t err = dispatch_width(channels, b);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

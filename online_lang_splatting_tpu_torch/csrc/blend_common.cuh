@@ -65,6 +65,11 @@ inline bool make_geometry(int width, int height, int tile, TileGeometry* g) {
   return true;
 }
 
+// Bytes per instance of the backward's `stored` flags: one per CTA of its
+// tile (K of them), padded to whole 32-bit words when K > 1, so that the
+// reduce kernel reads an instance's flags as words.
+__host__ __device__ constexpr int flag_stride(int k) { return k == 1 ? 1 : (k + 3) & ~3; }
+
 inline int num_ctas(const TileGeometry& g) {
   const int tiles_y = (g.height + g.tile - 1) / g.tile;
   return g.tiles_x * tiles_y * g.nq * g.nq;

@@ -13,8 +13,11 @@ channel groups). The forward and backward are compiled once per width: an
 EXACT instance for C = 4, 7 and 19 (the main path's widths, C fixed at
 compile time) and a padded instance for each of PADDED_WIDTHS, which runs
 any C up to its width (`instance_of`; `dispatch_width` in
-csrc/blend_common.cuh). The reduce kernel is compiled once per count of
-values a lane sums (`reduce_instance`: 1, 2 or 3 of the 6 + C).
+csrc/blend_common.cuh). The reduce kernel is compiled per row width (6 +
+C up to 16, 32, 64 or 70: its shared-memory rows) and per count K of CTAs per tile (1, 4, 9, 16 as constants, any
+other at run time): `reduce_instance`. The backward's rows need no fill;
+its `stored` flags (`flag_stride` bytes per instance) do, and the reduce
+reads only the flagged rows.
 
 `--fmad=false` keeps the kernels' float arithmetic operation for operation
 the same as the JAX reference's (no fused multiply-adds the source does not
@@ -48,17 +51,12 @@ EXACT_WIDTHS = (4, 7, 19)
 PADDED_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 48, 64)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# ctypes signatures of the extern "C" entry points, in source order: a
-# pointer (or the stream) is c_void_p, an int c_int. Without them ctypes
-# would pass every Python int as a 32-bit int and cut the pointers.
-ARGTYPES = {
-    "blend_fwd": [_P] * 9 + [_I] * 6 + [_P],
-    "blend_bwd": [_P] * 10 + [_I] * 4 + [_P],
-    "blend_reduce": [_P] * 5 + [_I] * 3 + [_P],
-    "blend_fwd_occupancy": [_I, _P],
-    "blend_bwd_occupancy": [_I, _P],
-    "blend_reduce_occupancy": [_I, _P],
-}
+# The reduce kernel's compiled row widths (each runs any 6 + C up to it),
+# and the CTAs per tile it is compiled for (any other K runs on the
+# instance with K read at run time, named 0).
+REDUCE_WIDTHS = (16, 32, 64, 6 + MAX_CHANNELS)
+REDUCE_CTAS = (1, 4, 9, 16)
+_EXTERN = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
 
 _lib = None
 build_info: dict = {}
@@ -87,19 +85,22 @@ def instance_of(channels: int) -> tuple[int, bool]:
     return next(w for w in PADDED_WIDTHS if w >= channels), False
 
 
-def reduce_instance(channels: int) -> int:
-    """Values per lane of the reduce kernel instance that runs `channels`:
-    ceil((6 + C) / 32)."""
+def reduce_instance(channels: int, ctas: int) -> tuple[int, int]:
+    """(row width, K) of the reduce kernel instance that runs `channels` at
+    `ctas` CTAs per tile (K = 0: read at run time)."""
     instance_of(channels)  # the domain check
-    return (6 + channels + 31) // 32
+    if ctas < 1:
+        raise ValueError(f"the reduce kernel takes K >= 1 CTAs per tile, got {ctas}")
+    width = next(w for w in REDUCE_WIDTHS if 6 + channels <= w)
+    return width, ctas if ctas in REDUCE_CTAS else 0
 
 
-def instance_name(kernel: str, channels: int) -> str:
+def instance_name(kernel: str, channels: int, ctas: int | None = None) -> str:
     """`instance_name("bwd", 27)` -> `bwd_kernel<28, false>`,
-    `instance_name("reduce", 27)` -> `reduce_kernel<2>`, as `ptxas_summary`
-    names them."""
+    `instance_name("reduce", 27, 4)` -> `reduce_kernel<64, 4>`, as
+    `ptxas_summary` names them (the reduce's needs `ctas`)."""
     if kernel == "reduce":
-        return f"reduce_kernel<{reduce_instance(channels)}>"
+        return "reduce_kernel<{}, {}>".format(*reduce_instance(channels, ctas))
     width, exact = instance_of(channels)
     return f"{kernel}_kernel<{width}, {str(exact).lower()}>"
 
@@ -111,9 +112,26 @@ def instances() -> list[tuple[int, bool]]:
 
 def instance_names() -> list[str]:
     """Every compiled kernel instance, as `ptxas_summary` names it."""
-    vpl = sorted({reduce_instance(c) for c in range(MIN_CHANNELS, MAX_CHANNELS + 1)})
+    reduce = sorted({reduce_instance(c, k) for c in range(MIN_CHANNELS, MAX_CHANNELS + 1)
+                     for k in (*REDUCE_CTAS, REDUCE_CTAS[-1] + 1)})
     return ([instance_name(k, c) for k in ("fwd", "bwd") for c, _ in instances()]
-            + [f"reduce_kernel<{v}>" for v in vpl])
+            + ["reduce_kernel<{}, {}>".format(*r) for r in reduce])
+
+
+def entry_points(csrc: Path = _CSRC) -> dict[str, list]:
+    """The ctypes argument types of every `extern "C"` entry point of the
+    sources in `csrc`, parsed from their signatures: a pointer (or the
+    stream) is c_void_p, anything else c_int. Without them ctypes would
+    pass every Python int as a 32-bit int and cut the pointers."""
+    found = {}
+    for src in sorted(csrc.glob("*.cu")):
+        for name, params in _EXTERN.findall(src.read_text()):
+            found[name] = [_P if "*" in p else _I for p in params.split(",")]
+    return found
+
+
+# This package's entry points and their signatures, read from csrc/.
+ARGTYPES = entry_points()
 
 
 def nvcc_commands(nvcc: str, out: Path, csrc: Path = _CSRC
@@ -172,14 +190,11 @@ def build_library(csrc: Path = _CSRC, build_dir: Path = BUILD_DIR) -> tuple[ctyp
         info["built"] = False
     info.update(seconds=time.time() - t0, path=str(so))
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in ARGTYPES.items():
-        # Another checkout's sources may predate an entry point (the reduce
-        # kernel); this package's must have every one.
+    # Each checkout's library is bound by its own sources' signatures.
+    for name, argtypes in entry_points(csrc).items():
         fn = getattr(lib, name, None)
         if fn is None:
-            if csrc == _CSRC:
-                raise RuntimeError(f"{so} has no entry point {name}")
-            continue
+            raise RuntimeError(f"{so} has no entry point {name}")
         fn.argtypes = argtypes
         fn.restype = _I
     return lib, info
@@ -235,12 +250,13 @@ def ptxas_summary(log: str) -> list[dict]:
     return rows
 
 
-def occupancy(kernel: str, channels: int) -> int:
+def occupancy(kernel: str, channels: int, ctas: int | None = None) -> int:
     """CTAs of the forward (`"fwd"`), backward (`"bwd"`) or reduce
-    (`"reduce"`) kernel resident on one SM of the current card, with their
-    dynamic shared memory."""
+    (`"reduce"`, at `ctas` CTAs per tile) kernel resident on one SM of the
+    current card, with their dynamic shared memory."""
     blocks = ctypes.c_int(0)
-    err = getattr(library(), f"blend_{kernel}_occupancy")(channels, ctypes.byref(blocks))
+    args = (channels, ctas) if kernel == "reduce" else (channels,)
+    err = getattr(library(), f"blend_{kernel}_occupancy")(*args, ctypes.byref(blocks))
     _raise_on(err, f"blend_{kernel}_occupancy")
     return blocks.value
 
@@ -279,31 +295,43 @@ def ctas_per_tile(tile: int) -> int:
     return (-(-tile // quad)) ** 2
 
 
+def flag_stride(ctas: int) -> int:
+    """Bytes of `stored` flags per instance: K, padded to whole 32-bit
+    words when K > 1 (csrc/blend_common.cuh: flag_stride)."""
+    return 1 if ctas == 1 else -(-ctas // 4) * 4
+
+
 def launch_backward(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
-                    feat_img, final_t, rows, *, channels: int, width: int,
-                    height: int, tile: int, lib: ctypes.CDLL | None = None):
-    """The backward's rows kernel: per sorted instance and CTA of its tile,
-    the instance's 6 + C values summed over the CTA's pixels, into `rows`
-    (S, ctas_per_tile(tile), 6 + C), which must be zero. (Another
-    checkout's atomic form writes d_table (P, 6 + C) here instead.)"""
+                    feat_img, final_t, rows, stored, *, channels: int,
+                    width: int, height: int, tile: int,
+                    lib: ctypes.CDLL | None = None):
+    """The backward's rows kernel: per sorted instance and CTA of its tile
+    that a pixel's contribution reached, the instance's 6 + C values summed
+    over the CTA's pixels into `rows` (S, ctas_per_tile(tile), 6 + C), and
+    a 1 into `stored` (S, flag_stride(K)) uint8, which must be zero; the
+    other rows are left as they were."""
     lib = lib or library()
     with torch.cuda.device(feat.device):
         err = lib.blend_bwd(
             geom.data_ptr(), feat.data_ptr(), s_gid.data_ptr(), starts.data_ptr(),
             tile_counts.data_ptr(), g_feat.data_ptr(), g_t.data_ptr(),
-            feat_img.data_ptr(), final_t.data_ptr(), rows.data_ptr(), channels,
-            width, height, tile, _stream(feat))
+            feat_img.data_ptr(), final_t.data_ptr(), rows.data_ptr(), stored.data_ptr(),
+            channels, width, height, tile, _stream(feat))
     _raise_on(err, "blend_bwd launch")
 
 
-def launch_reduce(rows, emit_inst, emit_start, emit_count, d_table, *,
+def launch_reduce(rows, stored, s_gid, emit_inst, emit_start, emit_count, d_table, *,
                   channels: int, lib: ctypes.CDLL | None = None):
-    """The reduce kernel: d_table (P, 6 + C) = the rows (S, K, 6 + C)
-    summed per Gaussian in emission order, each instance's K rows first."""
+    """The reduce kernel: d_table (P, 6 + C) = the stored rows of `rows`
+    (S, K, 6 + C) summed per Gaussian in emission order, each instance's
+    stored rows first, in k order; `s_gid` (S,) is the binning's Gaussian
+    per sorted instance. d_table must be 16-byte aligned."""
     lib = lib or library()
+    if d_table.data_ptr() % 16:
+        raise ValueError("d_table must be 16-byte aligned")
     with torch.cuda.device(rows.device):
         err = lib.blend_reduce(
-            rows.data_ptr(), emit_inst.data_ptr(), emit_start.data_ptr(),
-            emit_count.data_ptr(), d_table.data_ptr(), channels, d_table.shape[0],
-            rows.shape[1], _stream(rows))
+            rows.data_ptr(), stored.data_ptr(), s_gid.data_ptr(), emit_inst.data_ptr(),
+            emit_start.data_ptr(), emit_count.data_ptr(), d_table.data_ptr(), channels,
+            d_table.shape[0], rows.shape[0], rows.shape[1], _stream(rows))
     _raise_on(err, "blend_reduce launch")

@@ -65,17 +65,19 @@ GEOM_COLS = 8
 @dataclass
 class KernelStats:
     """Launch counters of one kernel and of its plain version, in total and
-    per channel count C. The threaded SLAM mode renders from two host
-    threads, so every update holds the lock."""
+    per channel count C; launches given their CTAs per tile K (the reduce's)
+    also per "C/K". The threaded SLAM mode renders from two host threads,
+    so every update holds the lock."""
 
     launches: int = 0
     plain_calls: int = 0
     launches_by_channels: dict[int, int] = field(default_factory=dict)
     plain_by_channels: dict[int, int] = field(default_factory=dict)
+    launches_by_channels_ctas: dict[str, int] = field(default_factory=dict)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                   compare=False)
 
-    def count(self, channels: int, *, plain: bool) -> None:
+    def count(self, channels: int, *, plain: bool, ctas: int | None = None) -> None:
         with self._lock:
             by = self.plain_by_channels if plain else self.launches_by_channels
             by[channels] = by.get(channels, 0) + 1
@@ -83,6 +85,10 @@ class KernelStats:
                 self.plain_calls += 1
             else:
                 self.launches += 1
+                if ctas is not None:
+                    key = f"{channels}/{ctas}"
+                    by_k = self.launches_by_channels_ctas
+                    by_k[key] = by_k.get(key, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
@@ -90,6 +96,7 @@ class KernelStats:
             self.plain_calls = 0
             self.launches_by_channels.clear()
             self.plain_by_channels.clear()
+            self.launches_by_channels_ctas.clear()
 
 
 FWD_STATS = KernelStats()
@@ -291,16 +298,19 @@ def blend_backward_plain(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
 
 
 def reduce_rows_plain(rows: torch.Tensor, emission: EmissionOrder,
-                      gaussians: int) -> torch.Tensor:
+                      gaussians: int, stored: torch.Tensor) -> torch.Tensor:
     """The reduce kernel's plain version, in its order bit for bit: rows
-    (S, K, G) -> d_table (gaussians, G), each instance's K rows added left
-    to right, then a Gaussian's instances added in emission order onto
-    zero."""
+    (S, K, G) -> d_table (gaussians, G), each instance's stored rows added
+    left to right onto +0 (`stored` (S, >= K) uint8 flags of the rows
+    kernel), then a Gaussian's instances added in emission order onto
+    zero. Unstored rows are never read, so they may hold anything; adding
+    them as exact zeros instead gives the same bits."""
     s, k, g = rows.shape
     REDUCE_STATS.count(g - 6, plain=True)
-    inst_rows = rows[:, 0]
-    for q in range(1, k):
-        inst_rows = inst_rows + rows[:, q]
+    flags = stored[:, :k].bool()
+    inst_rows = torch.zeros((s, g), dtype=rows.dtype, device=rows.device)
+    for q in range(k):
+        inst_rows = torch.where(flags[:, q, None], inst_rows + rows[:, q], inst_rows)
     table = torch.zeros((gaussians, g), dtype=rows.dtype, device=rows.device)
     start, count = emission.start.long(), emission.count.long()
     inst = emission.inst.long()
@@ -419,19 +429,24 @@ def _backward_group(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
     if not feat.is_cuda:
         rows = _backward_rows_plain(geom, feat, s_gid, starts, tile_counts, g_feat,
                                     g_t, feat_img, final_t, **kw)
-        return reduce_rows_plain(rows[:, None], emission, p)
+        # One row per instance, every one stored.
+        return reduce_rows_plain(rows[:, None], emission, p,
+                                 torch.ones((rows.shape[0], 1), dtype=torch.uint8))
     from . import kernels
 
     dev = feat.device
-    rows = torch.zeros((s_gid.shape[0], kernels.ctas_per_tile(tile), 6 + c),
-                       dtype=torch.float32, device=dev)
+    # The rows need no fill: the reduce reads only those flagged in `stored`.
+    k = kernels.ctas_per_tile(tile)
+    rows = torch.empty((s_gid.shape[0], k, 6 + c), dtype=torch.float32, device=dev)
+    stored = torch.zeros((s_gid.shape[0], kernels.flag_stride(k)), dtype=torch.uint8,
+                         device=dev)
     kernels.launch_backward(geom, feat, s_gid, starts, tile_counts, g_feat, g_t,
-                            feat_img, final_t, rows, channels=c, **kw)
+                            feat_img, final_t, rows, stored, channels=c, **kw)
     BWD_STATS.count(c, plain=False)
     d_table = torch.empty((p, 6 + c), dtype=torch.float32, device=dev)
-    kernels.launch_reduce(rows, emission.inst, emission.start, emission.count,
-                          d_table, channels=c)
-    REDUCE_STATS.count(c, plain=False)
+    kernels.launch_reduce(rows, stored, s_gid, emission.inst, emission.start,
+                          emission.count, d_table, channels=c)
+    REDUCE_STATS.count(c, plain=False, ctas=k)
     return d_table
 
 

@@ -5,9 +5,13 @@ in a fixed order, and channel groups past F_lang = 60, on the CPU path.
    of csrc/blend_reduce.cu bit for bit) against the JAX package's
    scatter-add (`.at[ids].add`, tiled.py's default reduction) and its
    emission segment sum (`_emission_segment_sum`) on the same seeded
-   per-instance rows: 1e-6 of the largest sum. With K > 1 rows per
-   instance (the CTAs of a tile) against a float32 numpy walk in the same
-   order: bit for bit.
+   per-instance rows: 1e-6 of the largest sum, also with K rows per
+   instance of which only those flagged in `stored` count (the others NaN).
+   With K > 1 rows per instance (the CTAs of a tile) against a float32
+   numpy walk in the same order: bit for bit. With `stored`, the unstored
+   rows NaN and some stored values -0: finite, and bit for bit the sum of
+   every row of the same workspace zero-filled (the kernel's invariant:
+   skipping an exact zero changes no bit).
 2. The binning's emission order (`SortedBinning.emission`) against a
    brute-force walk of the same instances: depth order, then each
    Gaussian's tiles row by row, keeping the binning's (Gaussian, tile)
@@ -53,12 +57,35 @@ def _rows(binning, values: int, ctas: int = 1, seed: int = 0) -> np.ndarray:
     return rng.normal(size=(binning.s_gid.shape[0], ctas, values)).astype(np.float32)
 
 
+def _all_stored(rows: np.ndarray) -> np.ndarray:
+    """`stored` flags with every slot of rows (S, K, G) set."""
+    return np.ones((rows.shape[0], kernels.flag_stride(rows.shape[1])), np.uint8)
+
+
+def _walk(rows: np.ndarray, emission, p: int) -> np.ndarray:
+    """The sums in float32 numpy, in the reduce's order as the earlier
+    workspace form took it: every one of an instance's K rows, left to
+    right, then a Gaussian's instances in emission order onto zero."""
+    inst, start, count = (n(x) for x in emission)
+    want = np.zeros((p, rows.shape[2]), np.float32)
+    for gid in range(p):
+        acc = np.zeros(rows.shape[2], np.float32)
+        for e in range(start[gid], start[gid] + count[gid]):
+            row = rows[inst[e], 0].copy()
+            for k in range(1, rows.shape[1]):
+                row = row + rows[inst[e], k]
+            acc = acc + row
+        want[gid] = acc
+    return want
+
+
 @pytest.mark.parametrize("name,tile", CASES)
 def test_fixed_order_reduction_matches_jax(name, tile):
     scene, geom, feat, b = work_ref._inputs(name, tile)
     p, g = geom.shape[0], 6 + feat.shape[1]
     rows = _rows(b, g, seed=tile)[:, 0]
-    got = n(tiled.reduce_rows_plain(t(rows)[:, None], b.emission, p))
+    got = n(tiled.reduce_rows_plain(t(rows)[:, None], b.emission, p,
+                                    t(_all_stored(rows[:, None]))))
     scatter = np.asarray(jnp.zeros((p, g), jnp.float32).at[jnp.asarray(n(b.s_gid))].add(
         jnp.asarray(rows)))
     s_emit = np.argsort(n(b.emission.inst))  # emission index per sorted instance
@@ -79,18 +106,64 @@ def test_reduction_adds_the_ctas_then_the_instances_in_order(ctas):
     _, geom, feat, b = work_ref._inputs("many_contrib", 32)
     p, g = geom.shape[0], 6 + feat.shape[1]
     rows = _rows(b, g, ctas, seed=ctas)
-    got = n(tiled.reduce_rows_plain(t(rows), b.emission, p))
-    inst, start, count = (n(x) for x in b.emission)
-    want = np.zeros((p, g), np.float32)
-    for gid in range(p):
-        acc = np.zeros(g, np.float32)
-        for e in range(start[gid], start[gid] + count[gid]):
-            row = rows[inst[e], 0].copy()
-            for k in range(1, ctas):
-                row = row + rows[inst[e], k]
-            acc = acc + row
-        want[gid] = acc
-    np.testing.assert_array_equal(got, want)
+    got = n(tiled.reduce_rows_plain(t(rows), b.emission, p, t(_all_stored(rows))))
+    np.testing.assert_array_equal(got, _walk(rows, b.emission, p))
+
+
+def _stored_rows(rows: np.ndarray, seed: int):
+    """Random `stored` flags (S, flag_stride(K)) uint8 for rows (S, K, G),
+    with the rows' unstored slots set to NaN and zero-filled, and a few
+    stored values set to -0."""
+    s, k, g = rows.shape
+    rng = np.random.default_rng(seed)
+    flags = np.zeros((s, kernels.flag_stride(k)), np.uint8)
+    flags[:, :k] = rng.uniform(size=(s, k)) < 0.6
+    rows = rows.copy()
+    rows[rng.uniform(size=rows.shape) < 0.05] = -0.0
+    on = flags[:, :k, None].astype(bool)
+    return flags, np.where(on, rows, np.float32(np.nan)), np.where(on, rows, np.float32(0.0))
+
+
+@pytest.mark.parametrize("name,tile", CASES)
+def test_fixed_order_reduction_with_stored_matches_jax(name, tile):
+    """K = ctas_per_tile(tile) rows per instance, only the stored ones
+    counted: the JAX scatter-add and emission segment sum of each
+    instance's stored rows (summed in k order) at 1e-6 of the largest sum."""
+    scene, geom, feat, b = work_ref._inputs(name, tile)
+    p, g = geom.shape[0], 6 + feat.shape[1]
+    k = kernels.ctas_per_tile(tile)
+    flags, nan_rows, zero_rows = _stored_rows(_rows(b, g, k, seed=tile), seed=tile)
+    got = n(tiled.reduce_rows_plain(t(nan_rows), b.emission, p, t(flags)))
+    per_inst = zero_rows[:, 0]
+    for q in range(1, k):
+        per_inst = per_inst + zero_rows[:, q]
+    scatter = np.asarray(jnp.zeros((p, g), jnp.float32).at[jnp.asarray(n(b.s_gid))].add(
+        jnp.asarray(per_inst)))
+    s_emit = np.argsort(n(b.emission.inst))
+    tiles = -(-scene["width"] // tile) * -(-scene["height"] // tile)
+    segment = np.asarray(_emission_segment_sum(
+        jnp.asarray(per_inst), jnp.asarray(s_emit.astype(np.int32)),
+        jnp.asarray(n(b.emission.start)), jnp.asarray(n(b.emission.count)), p, tiles))
+    scale = np.abs(scatter).max()
+    assert scale > 0 and np.isfinite(got).all()
+    assert np.abs(got - scatter).max() <= 1e-6 * scale
+    assert np.abs(got - segment).max() <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("ctas", (1, 4, 16))
+def test_reduction_skips_unstored_rows_bit_for_bit(ctas):
+    """NaN in every unstored slot: the sums are finite and bit-equal to the
+    old order (all K rows, left to right) on the zero-filled workspace."""
+    _, geom, feat, b = work_ref._inputs("many_contrib", 32)
+    p, g = geom.shape[0], 6 + feat.shape[1]
+    flags, nan_rows, zero_rows = _stored_rows(_rows(b, g, ctas, seed=10 + ctas), seed=ctas)
+    got = n(tiled.reduce_rows_plain(t(nan_rows), b.emission, p, t(flags)))
+    old = _walk(zero_rows, b.emission, p)
+    assert np.isfinite(got).all() and float(np.abs(old).max()) > 0
+    np.testing.assert_array_equal(got.view(np.int32), old.view(np.int32))
+    # Every slot stored: the old order itself, bit for bit.
+    again = n(tiled.reduce_rows_plain(t(zero_rows), b.emission, p, t(_all_stored(zero_rows))))
+    np.testing.assert_array_equal(again.view(np.int32), old.view(np.int32))
 
 
 def _brute_force_emission(prep, s_gid, s_tile, p: int, tiles_x: int) -> EmissionOrder:

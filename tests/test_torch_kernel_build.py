@@ -3,12 +3,15 @@
 - every file under csrc/ is hashed into the library's name (an edited
   header rebuilds);
 - every `.cu` is in the nvcc command;
-- the ctypes signatures match the `extern "C"` entry points parsed from the
-  sources, pointer for pointer and int for int (a mismatch would pass a
-  pointer as a 32-bit int);
+- the ctypes signatures parsed from the sources' `extern "C"` entry points
+  are the ABI the launch wrappers call, pointer for pointer and int for int
+  (a mismatch would pass a pointer as a 32-bit int);
 - the ptxas summary that chip_smoke.py prints parses nvcc's `-Xptxas -v`
   lines per kernel instance, the reduce kernel's included, and the reduce
-  kernel's instances are the values per lane its dispatch routes to.
+  kernel's instances are the lane layouts and CTAs per tile its dispatch
+  routes to;
+- the `stored` flags' stride per instance is the sources', and another
+  checkout's library is bound by its own signatures (tools/blend_ab.py).
 """
 
 import ctypes
@@ -23,16 +26,17 @@ import torch_helpers  # noqa: F401  (sets the torch thread count)
 from online_lang_splatting_tpu_torch.ops.raster import kernels
 
 CSRC = Path(kernels._CSRC)
-_EXTERN = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
-
-
-def _entry_points() -> dict:
-    found = {}
-    for src in sorted(CSRC.glob("*.cu")):
-        for name, params in _EXTERN.findall(src.read_text()):
-            found[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
-                           for p in params.split(",")]
-    return found
+# The entry points' ABI as the launch wrappers call it: P a pointer (or the
+# stream), I an int, in order.
+_ABI = {
+    "blend_fwd": "P" * 9 + "I" * 6 + "P",
+    "blend_bwd": "P" * 11 + "I" * 4 + "P",
+    "blend_reduce": "P" * 7 + "I" * 4 + "P",
+    "blend_fwd_occupancy": "IP",
+    "blend_bwd_occupancy": "IP",
+    "blend_reduce_occupancy": "IIP",
+}
+_CTYPE = {"P": ctypes.c_void_p, "I": ctypes.c_int}
 
 
 def test_every_source_is_hashed(tmp_path):
@@ -61,14 +65,15 @@ def test_every_cu_is_compiled():
 
 
 def test_entry_points_are_all_bound():
-    assert set(_entry_points()) == set(kernels.ARGTYPES)
+    assert set(kernels.ARGTYPES) == set(_ABI)
+    assert kernels.ARGTYPES == kernels.entry_points(CSRC)
 
 
 @pytest.mark.parametrize("name", sorted(kernels.ARGTYPES))
 def test_argtypes_match_the_c_signature(name):
-    parsed = _entry_points()[name]
-    assert kernels.ARGTYPES[name] == parsed, (
-        name, [t.__name__ for t in kernels.ARGTYPES[name]], [t.__name__ for t in parsed])
+    want = [_CTYPE[x] for x in _ABI[name]]
+    assert kernels.ARGTYPES[name] == want, (
+        name, [t.__name__ for t in kernels.ARGTYPES[name]], [t.__name__ for t in want])
 
 
 _LOG = """\
@@ -137,43 +142,111 @@ def test_dispatch_widths_match_the_source():
             assert routed == want[0]
 
 
-def _reduce_entry(vpl: int) -> str:
-    return (f"ptxas info    : Compiling entry function '_ZN5blend13reduce_kernelILi{vpl}"
-            f"EEEvPKfPKiS4_S4_Pfiii' for 'sm_90a'\n"
-            f"ptxas info    : Function properties for _ZN5blend13reduce_kernelILi{vpl}"
-            f"EEEvPKfPKiS4_S4_Pfiii\n"
+_REDUCE_WIDTHS = (16, 32, 64, 70)
+
+
+def _reduce_entry(width: int, k: int) -> str:
+    name = f"_ZN5blend13reduce_kernelILi{width}ELi{k}EEEvPKfPKhPKiS6_S6_S6_Pfiiii"
+    return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {name}\n"
             f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-            f"ptxas info    : Used {30 + vpl} registers, used 0 barriers, 392 bytes cmem[0]\n")
+            f"ptxas info    : Used {30 + k} registers, used 1 barriers, "
+            f"{width * 512} bytes smem, 400 bytes cmem[0]\n")
 
 
 def test_ptxas_summary_names_the_reduce_instances():
+    ks = (0, 1, 4, 9, 16)
     log = ("".join(_entry(k, w, e) for k in ("fwd", "bwd") for w, e in kernels.instances())
-           + "".join(_reduce_entry(v) for v in (1, 2, 3)))
+           + "".join(_reduce_entry(w, k) for w in _REDUCE_WIDTHS for k in ks))
     rows = kernels.ptxas_summary(log)
     assert [row["kernel"] for row in rows] == kernels.instance_names()
-    assert rows[-3:] == [{"kernel": f"reduce_kernel<{v}>", "stack": 0, "spill_stores": 0,
-                          "spill_loads": 0, "registers": 30 + v, "smem": 0} for v in (1, 2, 3)]
-    assert [kernels.instance_name("reduce", c) for c in (4, 26, 27, 58, 59, 64)] == [
-        "reduce_kernel<1>", "reduce_kernel<1>", "reduce_kernel<2>", "reduce_kernel<2>",
-        "reduce_kernel<3>", "reduce_kernel<3>"]
+    assert rows[-len(ks) * 4:] == [
+        {"kernel": f"reduce_kernel<{w}, {k}>", "stack": 0, "spill_stores": 0,
+         "spill_loads": 0, "registers": 30 + k, "smem": w * 512}
+        for w in _REDUCE_WIDTHS for k in ks]
+    assert [kernels.instance_name("reduce", c, 4) for c in (4, 10, 11, 26, 27, 58, 59, 64)] == [
+        "reduce_kernel<16, 4>", "reduce_kernel<16, 4>", "reduce_kernel<32, 4>",
+        "reduce_kernel<32, 4>", "reduce_kernel<64, 4>", "reduce_kernel<64, 4>",
+        "reduce_kernel<70, 4>", "reduce_kernel<70, 4>"]
+    assert [kernels.instance_name("reduce", 19, kernels.ctas_per_tile(t))
+            for t in (8, 16, 24, 32, 40, 48, 64, 80)] == [
+        f"reduce_kernel<32, {k}>" for k in (1, 1, 4, 4, 9, 9, 16, 0)]
 
 
 def test_reduce_instances_match_the_source():
-    """dispatch_vpl in blend_reduce.cu routes G = 6 + C to ceil(G / 32)
-    values per lane, as kernels.reduce_instance does, over the same domain."""
+    """dispatch_reduce in blend_reduce.cu routes G = 6 + C to the smallest
+    compiled row width >= G, and dispatch_ctas K to its constant or to the
+    runtime-K instance, as kernels.reduce_instance does, over the same
+    domain."""
     src = (CSRC / "blend_reduce.cu").read_text()
-    body = src[src.index("cudaError_t dispatch_vpl("):]
+    body = src[src.index("cudaError_t dispatch_reduce("):]
     body = body[:body.index("\n}\n")]
-    cases = {int(a): int(b) for a, b in re.findall(
-        r"case (\d+): return f\.template operator\(\)<(\d+)>\(\);", body)}
-    assert cases == {1: 1, 2: 2} and "operator()<MAX_VPL>()" in body
-    assert "(6 + C + 31) / 32" in body
-    assert "MAX_VPL = (6 + MAX_CHANNELS + 31) / 32" in src
+    routed = [(int(top), int(w)) for top, w in re.findall(
+        r"if \(G <= (\d+)\) return dispatch_ctas<(\d+)>", body)]
+    last = int(re.search(r"\n  return dispatch_ctas<(\d+)>", body).group(1))
+    assert all(top == w for top, w in routed)
+    assert tuple(w for _, w in routed) + (last,) == kernels.REDUCE_WIDTHS == _REDUCE_WIDTHS
+    assert last == 6 + kernels.MAX_CHANNELS
+    ctas = src[src.index("cudaError_t dispatch_ctas("):]
+    ctas = ctas[:ctas.index("\n}\n")]
+    cases = [(int(a), int(b)) for a, b in re.findall(
+        r"case (\d+): return f\.template operator\(\)<GMAX, (\d+)>\(\);", ctas)]
+    assert all(a == b for a, b in cases)
+    assert tuple(a for a, _ in cases) == kernels.REDUCE_CTAS
+    assert "default: return f.template operator()<GMAX, 0>();" in ctas
     for c in range(kernels.MIN_CHANNELS, kernels.MAX_CHANNELS + 1):
-        assert kernels.reduce_instance(c) == cases.get((6 + c + 31) // 32, 3)
+        want = next(w for w in _REDUCE_WIDTHS if 6 + c <= w)
+        for tile in range(1, 81):
+            k = kernels.ctas_per_tile(tile)
+            assert kernels.reduce_instance(c, k) == (want, k if k in kernels.REDUCE_CTAS else 0)
     for c in (kernels.MIN_CHANNELS - 1, kernels.MAX_CHANNELS + 1):
         with pytest.raises(ValueError):
-            kernels.reduce_instance(c)
+            kernels.reduce_instance(c, 4)
+    with pytest.raises(ValueError):
+        kernels.reduce_instance(19, 0)
+
+
+def test_flag_stride_matches_the_source():
+    """The bytes of `stored` per instance: K, padded to whole words past 1,
+    as blend_common.cuh's flag_stride, which both kernels index with."""
+    src = (CSRC / "blend_common.cuh").read_text()
+    assert "constexpr int flag_stride(int k) { return k == 1 ? 1 : (k + 3) & ~3; }" in src
+    for k in range(1, 40):
+        assert kernels.flag_stride(k) == (1 if k == 1 else (k + 3) & ~3)
+    for name in ("blend_bwd.cu", "blend_reduce.cu"):
+        assert "flag_stride(" in (CSRC / name).read_text(), name
+
+
+def test_another_checkout_binds_by_its_own_signatures(tmp_path):
+    """An earlier checkout's sources (a backward and a reduce without
+    `stored`) parse to their own argument types, and a library whose reduce
+    takes fewer arguments than this package's is told apart."""
+    older = tmp_path / "csrc"
+    older.mkdir()
+    (older / "blend_reduce.cu").write_text(
+        'extern "C" int blend_reduce(const float* rows, const int* emit_inst,\n'
+        '    const int* emit_start, const int* emit_count, float* d_table,\n'
+        '    int channels, int gaussians, int ctas, void* stream) { return 0; }\n')
+    from online_lang_splatting_tpu_torch.tools import blend_ab
+
+    parsed = kernels.entry_points(older)
+    assert parsed == {"blend_reduce": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p]}
+    assert kernels.entry_points() == kernels.ARGTYPES
+
+    class Fn:
+        def __init__(self, argtypes):
+            self.argtypes = argtypes
+
+    class Lib:
+        pass
+
+    lib = Lib()
+    assert not blend_ab.takes_stored(lib)  # an atomic form: no reduce
+    lib.blend_reduce = Fn(parsed["blend_reduce"])
+    assert not blend_ab.takes_stored(lib)
+    lib.blend_reduce = Fn(kernels.ARGTYPES["blend_reduce"])
+    assert blend_ab.takes_stored(lib)
 
 
 def test_the_backward_sums_with_no_float_atomic():
