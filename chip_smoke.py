@@ -93,7 +93,9 @@ non-zero):
      frame against tracking_run (at every pose the banded run rendered,
      the banded and the single-device loss and pose gradient; the run
      converged and near GT; tracking_run and the banded run each run
-     twice, bit-equal to themselves); (d) the data-parallel mapping
+     twice, bit-equal to themselves); the banded render's gradients of
+     every replicated input bit-equal to the bands' own gradients summed in
+     band order; (d) the data-parallel mapping
      iteration over 2 shards against mapping_iteration; (e) the
      disentangled rasterizer (the colour pass equals the entangled render,
      the language pass's C = 7 kernels equal their plain versions on its
@@ -101,8 +103,11 @@ non-zero):
      C = 4 and C = 7); (f) the headless viewer's PNG mosaics of every camera, read
      back, none blank; (g) a 4-frame SLAM run with a 2-shard mesh on this
      card and use_gui: True (banded tracking, sharded mapping, the
-     viewer's frames; its map init cut to 350 iterations); every path's
-     launches counted on their own;
+     viewer's frames; its map init cut to 350 iterations); (h) the
+     data-parallel online-AE step over 4 shards of this card against the
+     single-device step (loss and gradients), against itself (bit for bit)
+     and against the shards' own gradients summed in shard order (bit for
+     bit); every path's launches counted on their own;
  11. the kernels' domain (any tile, C = F + 4 from 4 to 64): (a) (run after
      phase 10) kernel vs plain on the five golden scenes at tiles 8, 15,
      24, 48, 64, 80 and 144 x F_lang 0, 1, 8, 23, 32 and 60 (the channels
@@ -139,10 +144,23 @@ non-zero):
      on a scene with 0.2 % large splats and on phase 3's last render; the
      forward, and against an earlier rows form the backward's d_table, bit
      for bit; graph-timed in turns);
+ 13. (run after phase 11 (c)) the weight-port tool: (a) phase 3's extractor
+     (ConvNeXt-L, HR head, one-stage AE), phase 8's text tower and online
+     AE and phase 7's LPIPS (the same seeds) written as reference-layout
+     checkpoints (SED's prefixed CLIP pickle, Lightning files, a plain
+     state dict), then `tools.verify_artifacts --device cuda` on them
+     (discover, convert, its own parity: the npz read back bit for bit,
+     each model from its output on the card against the CPU); (b) its npz
+     bit-equal to phase 8's weights directory; (c) `slam_torch.main
+     --weights-dir` on its output, 2 frames of phase 3's config (map init
+     cut to 350 iterations), launches counted, its extractor (built by
+     `load_extractor_from_dir` on the tool's output) encoding phase 5's
+     frame bit-equal to phase 3's extractor;
 then one JSON line of the disk-entry numbers, one of the language numbers,
 one of the 3D-evaluation numbers, one of the language tools' numbers, one
 of the multi-device numbers, one of the domain numbers, one of the
-repeatability numbers, one of per-kernel results (the forward, the
+repeatability numbers, one of the weight-port tool's numbers, one of
+per-kernel results (the forward, the
 backward's rows and its reduce kernel, each compiled instance with its
 launches per path) and, last, the ok line.
 
@@ -1770,6 +1788,10 @@ def phase9_language_tools(config_path: str, dev, work: Path, weights: dict):
 # gradient tolerance.
 PY_LIMITS, RENDER_SHARDS, MAP_SHARDS, MESH_FRAMES = (152, 8), 4, 2, 4
 BANDED_LOSS_RTOL = 1e-6
+# (h) the data-parallel online-AE step: shards, the batch (one keyframe's
+# 192^2 codes of 32), its bound against the single-device step
+# (normalized; the sharded loss is a mean of the shards' means).
+AE_SHARDS, AE_BATCH, AE_DP_TOL = 4, 192 * 192, 1e-5
 
 
 def _forward_check(geom, feat, binning, *, width, height, tile, py_limit):
@@ -1796,6 +1818,54 @@ def _path_counts(tiled, where: str, backward: bool = True, **extra) -> dict:
     if counts["fwd_plain"] or counts["bwd_plain"] or counts["reduce_plain"]:
         raise AssertionError(f"{where}: a plain blend ran: {counts}")
     return dict(counts, **extra)
+
+
+def _band_order_check(mesh, inputs, view, proj, settings, dev) -> dict:
+    """The banded render's gradients of every replicated input (each
+    RenderInputs field, the background, both pose deltas) against the left
+    fold of each band's own gradients in band order, rendered and
+    differentiated band by band: elements that differ (0 expected). The
+    loss weighs every output pixel by a seeded value, so the order of the
+    bands' sum shows in the float result."""
+    from online_lang_splatting_tpu_torch.parallel import tile_shard
+    from online_lang_splatting_tpu_torch.slam.renderer import RenderInputs
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    h, w = settings.image_height, settings.image_width
+    _, band_h, padded_h = tile_shard.band_layout(h, settings.tile, mesh.size)
+    base = dict(inputs._asdict(), bg=torch.rand(3, generator=gen, device=dev),
+                cam_trans_delta=torch.zeros(3, device=dev),
+                cam_rot_delta=torch.zeros(3, device=dev))
+    weights = {k: torch.randn(shape, generator=gen, device=dev) for k, shape in (
+        ("color", (3, padded_h, w)), ("language", (inputs.language.shape[1], padded_h, w)),
+        ("depth", (1, padded_h, w)), ("opacity", (1, padded_h, w)), ("final_t", (padded_h, w)))}
+
+    def leaves():
+        return {k: v.detach().clone().requires_grad_(True) for k, v in base.items()}
+
+    def split(x):
+        return (RenderInputs(**{k: x[k] for k in RenderInputs._fields}),
+                {k: x[k] for k in x if k not in RenderInputs._fields})
+
+    def weighted(out, y0, rows):
+        return sum((getattr(out, k)[..., :rows, :] * wk[..., y0:y0 + rows, :]).sum()
+                   for k, wk in weights.items())
+
+    x = leaves()
+    band_in, extra = split(x)
+    got = torch.autograd.grad(weighted(tile_shard.banded_render(
+        mesh, band_in, view, proj, settings, **extra), 0, h), list(x.values()))
+    want = [None] * len(base)
+    for k in range(mesh.size):
+        xk = leaves()
+        band_in, extra = split(xk)
+        out, _ = tile_shard._band_blend(band_in, view, proj, settings, k, band_h=band_h,
+                                        **extra)
+        gk = torch.autograd.grad(weighted(out, k * band_h, min(max(h - k * band_h, 0), band_h)),
+                                 list(xk.values()), allow_unused=True)
+        want = [a if b is None else b if a is None else a + b for a, b in zip(want, gk)]
+    torch.cuda.synchronize()
+    return {name: int((g != wt).sum()) for name, g, wt in zip(base, got, want)}
 
 
 def _reset(tiled):
@@ -1961,6 +2031,14 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
     errs.update({f"d_{k}": _norm_err(a, b)
                  for k, a, b in zip(("xyz", "opacity", "language"), g_band, g_ref)})
     _check(errs, "phase10 (b) banded render vs single device")
+    t0 = time.time()
+    band_order = _band_order_check(mesh4, inputs, view, proj, s, dev)
+    band_order_s = time.time() - t0
+    print(f"[phase10] (b) the banded render's gradients against the left fold of the "
+          f"{RENDER_SHARDS} bands' own gradients in band order, elements that differ: "
+          + json.dumps(band_order) + f" ({band_order_s:.2f} s)")
+    if any(band_order.values()):
+        raise AssertionError(f"phase10 (b): gradients not summed in band order: {band_order}")
     # The forward kernel alone per band (its own binning, its row limit)
     # and on the whole frame: launches back to back into preallocated
     # buffers, as phase 4 times it.
@@ -1983,7 +2061,8 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
                                                       tile=tile), band_h, limits[k])
                    for k in range(RENDER_SHARDS)]
         frame_ms = fwd_device_ms(prep, h, h)
-    out["banded_render"] = dict(errs, shards=RENDER_SHARDS, band_h=band_h, padded_h=padded_h,
+    out["banded_render"] = dict(errs, band_order_differ=band_order, band_order_s=band_order_s,
+                                shards=RENDER_SHARDS, band_h=band_h, padded_h=padded_h,
                                 py_limits=limits, band_fwd_ms=band_ms,
                                 band_fwd_sum_ms=float(sum(band_ms)), frame_fwd_ms=frame_ms)
     print(f"[phase10] (b) banded render, {RENDER_SHARDS} shards on {dev} (bands of {band_h} "
@@ -2234,7 +2313,24 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
           f"{bands.call_count} over bands {band_idx}; sharded mapping iterations "
           f"{sharded.call_count}; tracking iters {run.frontend.track_iters}; max translation "
           f"error {max(errs_gt):.5f} m; viewer frames " + json.dumps(frames))
+    # (h) The data-parallel online-AE step over AE_SHARDS shards of this
+    # card: against the single-device step, against itself, and against the
+    # shards' own gradients summed in shard order.
+    t0 = time.time()
+    out["dp_ae"] = _dp_ae_check(mesh_mod.named_mesh([dev] * AE_SHARDS), dev)
+    out["dp_ae"]["seconds"] = time.time() - t0
+    dp = out["dp_ae"]
+    print(f"[phase10] (h) dp_ae_train_step, {AE_SHARDS} shards of {AE_BATCH // AE_SHARDS} "
+          f"codes: loss {dp['loss']!r} vs single device {dp['loss_single']!r} (relative "
+          f"{dp['loss_rdiff']:.3e}), gradients normalized {dp['grad_err']:.3e} (bound "
+          f"{AE_DP_TOL}); twice bit for bit {dp['repeats']}; elements off the shard-order "
+          f"sum {dp['shard_order_differ']}; step {dp['step_ms']:.3f} ms, single "
+          f"{dp['single_ms']:.3f} ms; {dp['seconds']:.2f} s")
     failed = [name for name, ok in (
+        ("dp AE loss vs single device", dp["loss_rdiff"] <= AE_DP_TOL),
+        ("dp AE gradients vs single device", dp["grad_err"] <= AE_DP_TOL),
+        ("dp AE repeats bit for bit", dp["repeats"]),
+        ("dp AE gradients in shard order", not any(dp["shard_order_differ"])),
         ("banded tracking loss at each pose", step_loss_rdiff <= BANDED_LOSS_RTOL),
         ("banded tracking gradient at each pose", step_grad_err <= GRAD_TOL),
         ("banded tracking converged", b[3] < kw["max_iters"]),
@@ -2251,6 +2347,60 @@ def phase10_multi_device(slam, dev, config_path: str, work: Path):
     if failed:
         raise AssertionError(f"phase10 checks failed: {failed}")
     return out
+
+
+def _dp_ae_check(mesh, dev) -> dict:
+    """parallel.mesh.dp_ae_train_step on one keyframe's seeded codes: the
+    gradients it hands the optimizer and its loss, against the
+    single-device online step from the same weights, against a second run,
+    and against the shards' own gradients left-folded in shard order and
+    divided by the shard count (exact at a power of two)."""
+    from unittest import mock
+
+    from online_lang_splatting_tpu_torch.models import autoencoder as ae
+    from online_lang_splatting_tpu_torch.models.init import make_generator
+    from online_lang_splatting_tpu_torch.parallel.mesh import dp_ae_train_step, shard_slices
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    codes = torch.nn.functional.normalize(
+        torch.randn((AE_BATCH, 32), generator=gen, device=dev), dim=-1)
+    initial = ae.EncoderDecoderOnline(generator=make_generator(2)).state_dict()
+
+    def fresh():
+        model = ae.EncoderDecoderOnline().to(dev)
+        model.load_state_dict(initial)
+        return model, ae.make_online_optimizer(model)
+
+    def step(run):
+        model, opt = fresh()
+        with mock.patch.object(opt, "step", wraps=opt.step) as rec:
+            loss = run(model, opt)
+        torch.cuda.synchronize()
+        return loss, [g.detach().clone() for g in rec.call_args.args[0]]
+
+    dp = [step(lambda m, o: dp_ae_train_step(m, o, mesh)(codes)) for _ in range(2)]
+    single = step(lambda m, o: ae.online_train_step(m, o, codes))
+    model, opt = fresh()
+    per_shard = [torch.autograd.grad(ae.online_loss(model(codes[sl]), codes[sl]), opt.params)
+                 for sl in shard_slices(AE_BATCH, mesh)]
+    folded = []
+    for i in range(len(opt.params)):
+        acc = per_shard[0][i]
+        for g in per_shard[1:]:
+            acc = acc + g[i]
+        folded.append(acc / mesh.size)
+    (loss, grads), (loss2, grads2) = dp
+    m_dp, o_dp = fresh()
+    m_one, o_one = fresh()
+    times = {"step_ms": _time(lambda: dp_ae_train_step(m_dp, o_dp, mesh)(codes), 10),
+             "single_ms": _time(lambda: ae.online_train_step(m_one, o_one, codes), 10)}
+    return dict(
+        shards=mesh.size, batch=AE_BATCH, loss=float(loss), loss_single=float(single[0]),
+        loss_rdiff=abs(float(loss) - float(single[0])) / abs(float(single[0])),
+        grad_err=max(_norm_err(a, b) for a, b in zip(grads, single[1])),
+        repeats=bool(torch.equal(loss, loss2)
+                     and all(torch.equal(a, b) for a, b in zip(grads, grads2))),
+        shard_order_differ=[int((a != b).sum()) for a, b in zip(grads, folded)], **times)
 
 
 # Phase 11: the kernels' domain. (a) the goldens at these tiles and
@@ -2802,6 +2952,160 @@ def phase12_ab(other: str, slam, dev) -> list:
     return rows
 
 
+# Phase 13: the reference's key layouts (SED's CLIP prefix, Lightning's
+# `model.`), and the frames of `slam_torch.main --weights-dir`.
+SED_PREFIX, WEIGHTS_FRAMES = "sem_seg_head.predictor.clip_model.", 2
+
+
+def _extractor_snapshot(slam, dev) -> dict:
+    """Phase 3's extractor for phase 13, after phase 3's SLAM is freed: its
+    weights on the host, phase 5's frame and its codes of that frame."""
+    ex = slam.backend.lang_extractor
+    rgb = torch.as_tensor(slam.dataset[0][0], device=dev).permute(1, 2, 0) * 255.0
+    code = ex.encode_frame(rgb)
+    return {"states": {name: {k: v.detach().cpu().clone()
+                              for k, v in getattr(ex, name).state_dict().items()}
+                       for name in ("visual", "hr", "ae")},
+            "rgb": rgb.cpu(), "code": code.cpu()}
+
+
+def _lpips_state_dict(params: dict) -> dict:
+    """LPIPS parameters in the `lpips` package's key layout."""
+    sd = {}
+    for k, ((w, b), fi) in enumerate(zip(params["convs"], (0, 3, 6, 8, 10))):
+        sd[f"net.slice{k + 1}.{fi}.weight"], sd[f"net.slice{k + 1}.{fi}.bias"] = w, b
+        sd[f"lin{k}.model.1.weight"] = params["lins"][k]
+    return sd
+
+
+def _npz_differ(a: Path, b: Path) -> list:
+    """The keys of two npz files that are missing from one, or differ in
+    dtype, shape or bits."""
+    differ = []
+    with np.load(a) as x, np.load(b) as y:
+        for k in sorted(set(x.files) | set(y.files)):
+            if k not in x.files or k not in y.files:
+                differ.append(k)
+                continue
+            u, v = x[k], y[k]
+            if u.dtype != v.dtype or u.shape != v.shape or u.tobytes() != v.tobytes():
+                differ.append(k)
+    return differ
+
+
+def phase13_weights_tool(config_path: str, dev, work: Path, weights: dict, snap: dict) -> dict:
+    """The weight-port tool as a user runs it: (a) phase 3's extractor,
+    phase 8's text tower and online AE and phase 7's LPIPS (the same seeds)
+    written as reference-layout checkpoints, then
+    `tools.verify_artifacts --device cuda` on them; (b) its npz bit-equal to
+    phase 8's weights directory; (c) `slam_torch.main --weights-dir` on it
+    for WEIGHTS_FRAMES frames, its extractor (load_extractor_from_dir on
+    the tool's output) encoding phase 5's frame bit-equal to phase 3's."""
+    import slam_torch
+    from online_lang_splatting_tpu_torch.eval import lpips
+    from online_lang_splatting_tpu_torch.models import autoencoder as ae
+    from online_lang_splatting_tpu_torch.models.init import make_generator
+    from online_lang_splatting_tpu_torch.models.text_tower import TextTower
+    from online_lang_splatting_tpu_torch.ops.raster import tiled
+    from online_lang_splatting_tpu_torch.tools import verify_artifacts
+
+    out: dict = {}
+    t_phase = time.time()
+    root = work / "weights_tool"
+    art, conv = root / "artifacts", root / "converted"
+    art.mkdir(parents=True)
+
+    # (a) Reference-layout checkpoints, then the tool.
+    t0 = time.time()
+    states = snap["states"]
+    text = TextTower(generator=make_generator(0)).state_dict()
+    online = ae.EncoderDecoderOnline(generator=make_generator(2)).state_dict()
+    lp = lpips.init_params(np.random.default_rng(0), device="cpu")
+    sed = {**{SED_PREFIX + "visual." + k: v for k, v in states["visual"].items()},
+           **{SED_PREFIX + k: v for k, v in text.items()},
+           SED_PREFIX + "logit_scale": torch.tensor(4.6052),
+           "criterion.empty_weight": torch.zeros(4)}
+    torch.save(sed, art / "seg_clip_model_l.pth")
+    for name, state in (("epoch=9-step=1.ckpt", states["hr"]), ("last.ckpt", states["ae"])):
+        torch.save({"state_dict": {"model." + k: v for k, v in state.items()}, "epoch": 9},
+                   art / name)
+    torch.save(online, art / "online_encoder.pth")
+    torch.save(_lpips_state_dict(lp), art / "alex.pth")
+    out["checkpoint_bytes"] = sum(f.stat().st_size for f in art.iterdir())
+    out["write_s"] = time.time() - t0
+    del sed, text
+    t0 = time.time()
+    rc = verify_artifacts.main(["--dir", str(art), "--out", str(conv), "--device", str(dev)])
+    out["tool_s"] = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"phase13 (a): verify_artifacts exited {rc}")
+    report = json.loads((conv / "verify_report.json").read_text())
+    out["tool"] = {k: report[k] for k in ("discover_s", "convert_s", "parity_s")}
+    out["tool"]["models"] = {k: {f: m[f] for f in ("tensors", "max_abs_err", "tol_abs",
+                                                   "tol_rel")}
+                             for k, m in report["models"].items()}
+    print(f"[phase13] (a) {len(report['found'])} reference-layout checkpoints "
+          f"({out['checkpoint_bytes'] / 2**20:.1f} MiB, written in {out['write_s']:.2f} s); "
+          f"verify_artifacts on {dev}: exit {rc} in {out['tool_s']:.2f} s (discover "
+          f"{report['discover_s']:.2f}, convert {report['convert_s']:.2f}, parity "
+          f"{report['parity_s']:.2f} s); worst forward error card vs CPU "
+          + json.dumps({k: m["max_abs_err"] for k, m in report["models"].items()}))
+
+    # (b) Its npz against phase 8's, and the extractor it loads.
+    t0 = time.time()
+    differ = {name: _npz_differ(conv / f"{name}.npz", weights["one"] / f"{name}.npz")
+              for name in ("clip_visual", "hr_net", "autoencoder", "clip_text")}
+    differ["online_ae"] = _npz_differ(conv / "online_ae.npz", weights["online_ae"])
+    back = lpips.load_params(str(conv / "lpips_alex.npz"), device="cpu")
+    differ["lpips_alex"] = [k for k, x, y in (
+        [(f"conv{i}", a, b) for i, (a, b) in enumerate(zip(back["convs"], lp["convs"]))]
+        + [(f"lin{i}", (a,), (b,)) for i, (a, b) in enumerate(zip(back["lins"], lp["lins"]))])
+        if not all(torch.equal(u, v) for u, v in zip(x, y))]
+    out["bit_equal"] = dict(npz_keys_differ=differ, seconds=time.time() - t0)
+    print(f"[phase13] (b) the tool's npz against phase 8's weights directory, keys that "
+          f"differ: " + json.dumps(differ) + f" ({out['bit_equal']['seconds']:.2f} s)")
+    if any(differ.values()):
+        raise AssertionError(f"phase13 (b): not bit-equal: {differ}")
+
+    # (c) The main path on the converted weights; its extractor, which
+    # slam_torch.main built by load_extractor_from_dir, on phase 5's frame.
+    cfg = root / "main.yaml"
+    cfg.write_text(json.dumps({"inherit_from": str(config_path),
+                               "Training": {"init_itr_num": SHORT_INIT_ITERS}}))
+    _reset(tiled)
+    t0 = time.time()
+    slam = slam_torch.main(["--config", str(cfg), "--max-frames", str(WEIGHTS_FRAMES),
+                            "--weights-dir", str(conv), "--device", str(dev)])
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    out["launches"] = _path_counts(tiled, "phase13 (c) slam_torch.main --weights-dir")
+    ex = slam.backend.lang_extractor
+    loaded = all(torch.equal(v.cpu(), states[name][k]) for name in ("visual", "hr", "ae")
+                 for k, v in getattr(ex, name).state_dict().items())
+    code = ex.encode_frame(snap["rgb"].to(dev)).cpu()
+    code_differ = int((code != snap["code"]).sum())
+    cams = slam.frontend.cameras
+    errs_gt = [float(np.linalg.norm(-c.r.T @ c.t + c.r_gt.T @ c.t_gt)) for c in cams.values()]
+    finite = all(np.isfinite(c.r).all() and np.isfinite(c.t).all() for c in cams.values())
+    out["main_path"] = dict(frames=WEIGHTS_FRAMES, init_iters=SHORT_INIT_ITERS, seconds=run_s,
+                            fps=slam.fps, weights_loaded=loaded,
+                            code_elements_differ=code_differ, max_trans_err=max(errs_gt),
+                            track_iters=list(slam.frontend.track_iters))
+    del slam, ex
+    gc.collect()
+    print(f"[phase13] (c) slam_torch.main --weights-dir on {config_path}, {WEIGHTS_FRAMES} "
+          f"frames (init {SHORT_INIT_ITERS} iterations): {run_s:.2f} s, FPS "
+          f"{out['main_path']['fps']:.4f}, the extractor holds the converted weights "
+          f"{loaded}, max translation error {max(errs_gt):.5f} m; its extractor on phase 5's "
+          f"frame {tuple(code.shape)}: {code_differ} elements differ from phase 3's; launches "
+          + json.dumps(out["launches"]))
+    if not (loaded and code_differ == 0 and finite and max(errs_gt) < GATE_TRANS_ERR):
+        raise AssertionError(f"phase13 (c): {out['main_path']}")
+    out["wall_s"] = time.time() - t_phase
+    print(f"[phase13] wall {out['wall_s']:.2f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=8)
@@ -2854,6 +3158,7 @@ def main(argv=None):
                   "single_repeats", "banded_repeats", "iters", "loss")}}
     if args.ab_other:
         repeat["blend_ab"] = timed("phase12d_ab", phase12_ab, args.ab_other, slam, dev)
+    snap = timed("phase13_snapshot", _extractor_snapshot, slam, dev)
     del slam
     gc.collect()
     repeat["goldens"] = timed("phase12c", phase12_goldens, dev)
@@ -2870,6 +3175,9 @@ def main(argv=None):
         tools = timed("phase9", phase9_language_tools, args.config, dev, work, weights)
         domain["pca_slice"] = timed("phase11c", phase11_pca_slice, dev, work, weights,
                                     disk_cfg, work / "language_tools" / "pca.npz")
+        weights_tool = timed("phase13", phase13_weights_tool, args.config, dev, work, weights,
+                             snap)
+        del snap
     walls["total"] = time.time() - t_start
     print("[done] wall seconds per phase " + json.dumps({k: round(v, 2) for k, v in walls.items()}))
 
@@ -2883,7 +3191,8 @@ def main(argv=None):
              **{f"phase10_{path}": c for path, c in multi["launches"].items()},
              "phase11_pca_slice": domain["pca_slice"]["launches"],
              "phase12_mapping": repeat["mapping"]["launches"],
-             "phase12_main_path": repeat["main_path"]["launches"]}
+             "phase12_main_path": repeat["main_path"]["launches"],
+             "phase13_weights_dir": weights_tool["launches"]}
     kernels = []
     r15 = times[15]
     timed = (list(times.values()) + list(domain["wide"].values())
@@ -2975,6 +3284,7 @@ def main(argv=None):
     print(json.dumps({"multi_device": dict(multi, card=smi)}, default=float))
     print(json.dumps({"domain": dict(domain, card=smi, phase_wall_s=walls)}, default=float))
     print(json.dumps({"repeatability": dict(repeat, card=smi)}, default=float))
+    print(json.dumps({"weights_tool": dict(weights_tool, card=smi)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

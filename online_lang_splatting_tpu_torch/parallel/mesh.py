@@ -7,9 +7,12 @@ devices, and one process drives them all.
 
 - A shard's work runs on its own device, on a contiguous equal share of
   the sharded axis (`P("dp")`).
-- A replicated input reaches each shard through `.to(device)`; autograd
-  sums the gradients back through it, the psum of the shard_map
-  transpose.
+- A replicated input that takes a gradient reaches the shards through
+  `replicate` (one `Replicate` call), whose backward adds the shards'
+  gradients left to right in shard order: the psum of the shard_map
+  transpose, in a fixed order. Autograd alone would add a tensor's uses in
+  the order it delivers them (the reverse of the uses on one device, the
+  order the device threads finish across cards).
 - psum / pmax / pmean of per-shard results are explicit reductions on the
   mesh's first device, where the replicated update runs.
 
@@ -64,16 +67,79 @@ def shard_slices(n: int, mesh: Mesh) -> list:
     return [slice(i * k, (i + 1) * k) for i in range(mesh.size)]
 
 
-def to_device(x, device):
-    """Tensors, and tuples / lists of them (NamedTuples kept), on `device`;
-    anything else as it is."""
+def _tensors(x) -> list:
     if isinstance(x, torch.Tensor):
-        return x.to(device)
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(to_device(v, device) for v in x))
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
     if isinstance(x, (tuple, list)):
-        return type(x)(to_device(v, device) for v in x)
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def _rebuild(x, it):
+    """`x` with its tensors taken from `it`, in `_tensors` order."""
+    if isinstance(x, torch.Tensor):
+        return next(it)
+    if isinstance(x, dict):
+        return {k: _rebuild(v, it) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_rebuild(v, it) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_rebuild(v, it) for v in x)
     return x
+
+
+def to_device(x, device):
+    """Tensors, and tuples / lists / dicts of them (NamedTuples kept), on
+    `device`; anything else as it is."""
+    return _rebuild(x, (t.to(device) for t in _tensors(x)))
+
+
+def _copy(x: torch.Tensor, device) -> torch.Tensor:
+    y = x.to(device)
+    return x.view_as(x) if y is x else y
+
+
+class Replicate(torch.autograd.Function):
+    """apply(devices, *tensors) -> one copy of every tensor per device, shard
+    after shard: (shard 0's copies, shard 1's, ...). A copy on the tensor's
+    own device is a view of it. The backward gets every copy's gradient at
+    once and adds them on the tensor's device left to right in shard order
+    (a missing gradient is no term), so the sum does not depend on the
+    order in which autograd or the devices delivered them. No NCCL
+    reduction: its order is not specified."""
+
+    @staticmethod
+    def forward(ctx, devices, *tensors):
+        ctx.set_materialize_grads(False)
+        ctx.homes = [x.device for x in tensors]
+        return tuple(_copy(x, dev) for dev in devices for x in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        m = len(ctx.homes)
+        sums = [None] * m
+        for k in range(len(grads) // m):
+            for i, home in enumerate(ctx.homes):
+                g = grads[k * m + i]
+                if g is None or not ctx.needs_input_grad[1 + i]:
+                    continue
+                g = g.to(home)
+                sums[i] = g if sums[i] is None else sums[i] + g
+        return (None, *sums)
+
+
+def replicate(mesh: Mesh, tree) -> list:
+    """`tree` (a tensor, or tuples / NamedTuples / dicts of tensors and
+    other values) once per shard, on the shard's device, through one
+    `Replicate` call: its gradients add back in shard order."""
+    leaves = _tensors(tree)
+    if not leaves:
+        return [tree] * mesh.size
+    copies = Replicate.apply(mesh.devices, *leaves)
+    m = len(leaves)
+    return [_rebuild(tree, iter(copies[k * m:(k + 1) * m])) for k in range(mesh.size)]
 
 
 # ---------------------------------------------------------------------------
@@ -84,18 +150,20 @@ def dp_ae_train_step(model, optimizer, mesh: Mesh):
     """step(x) -> loss: one online-AE step (models/autoencoder.
     online_train_step) with the batch split over the mesh, the parameters
     replicated, and the loss and gradients the mean over the shards
-    (pmean). The model and its optimizer live on the mesh's first device."""
+    (pmean; the shards' gradients add in shard order). The model and its
+    optimizer live on the mesh's first device."""
     from torch.func import functional_call
 
     from ..models.autoencoder import online_loss
 
     def step(x):
         d0 = mesh.devices[0]
-        params = dict(model.named_parameters())
+        shard_params = replicate(mesh, dict(model.named_parameters()))
         losses = []
-        for dev, sl in zip(mesh.devices, shard_slices(x.shape[0], mesh)):
+        for dev, sl, params in zip(mesh.devices, shard_slices(x.shape[0], mesh),
+                                   shard_params):
             xk = x[sl].to(dev)
-            pred = functional_call(model, to_device(params, dev), (xk,))
+            pred = functional_call(model, params, (xk,))
             losses.append(online_loss(pred, xk).to(d0))
         loss = torch.stack(losses).mean()
         optimizer.step(torch.autograd.grad(loss, optimizer.params))

@@ -4,8 +4,9 @@ parallel/tile_shard.py).
 Parallelism for a single render: the image's tile rows are split into
 horizontal bands, one per shard of the mesh (parallel/mesh.py). Each shard
 preprocesses the whole frame on its device (cheap, replicated), bins and
-blends only its own band, and the per-Gaussian gradients sum back through
-`.to` (the psum of the JAX package's shard_map transpose). Tracking, one
+blends only its own band, and the per-Gaussian and pose gradients sum back
+in band order through `mesh.replicate` (the psum of the JAX package's
+shard_map transpose, in a fixed order). Tracking, one
 camera and one render per iteration, scales with the number of devices
 this way; mapping shards keyframes instead (parallel/mesh.py).
 
@@ -30,7 +31,7 @@ from ..ops.raster.api import project
 from ..ops.raster.preprocess import Preprocessed
 from ..ops.raster.tiled import blend_tiled
 from ..slam.renderer import RenderInputs
-from .mesh import Mesh, to_device
+from .mesh import Mesh, replicate
 
 
 def band_layout(height: int, tile: int, n: int):
@@ -104,15 +105,16 @@ def banded_render(mesh: Mesh, inputs: RenderInputs, view, proj,
     """slam.renderer.render's arguments and outputs, band-parallel: one band
     per shard, each on its own device, assembled on the mesh's first device
     (heights padded to the band grid, then cropped). Differentiable; the
-    Gaussians' and the pose perturbation's gradients sum over the bands."""
+    gradients of the Gaussians, the background and the pose perturbation
+    sum over the bands in band order."""
     h = settings.image_height
     _, band_h, _ = band_layout(h, settings.tile, mesh.size)
     d0 = mesh.devices[0]
-    bands = [_band_blend(to_device(inputs, dev), view.to(dev), proj.to(dev), settings,
-                         k, band_h=band_h, bg=to_device(bg, dev),
-                         cam_trans_delta=to_device(cam_trans_delta, dev),
-                         cam_rot_delta=to_device(cam_rot_delta, dev))
-             for k, dev in enumerate(mesh.devices)]
+    shared = replicate(mesh, (inputs, bg, cam_trans_delta, cam_rot_delta))
+    bands = [_band_blend(band_inputs, view.to(dev), proj.to(dev), settings, k,
+                         band_h=band_h, bg=band_bg, cam_trans_delta=trans, cam_rot_delta=rot)
+             for k, (dev, (band_inputs, band_bg, trans, rot))
+             in enumerate(zip(mesh.devices, shared))]
 
     def cat(field, dim):
         return torch.cat([getattr(o, field).to(d0) for o, _ in bands], dim)

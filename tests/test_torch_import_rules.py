@@ -59,3 +59,19 @@ def test_cv2_only_at_the_sgbm_site():
 def test_open3d_only_in_the_interactive_window():
     # Three imports there (open3d, its gui and rendering modules), one site.
     assert set(_sites("open3d")) == {OPEN3D_SITE}
+
+
+def test_verify_artifacts_imports_torch_numpy_and_the_port_only():
+    """The weight-port tool runs where neither JAX nor the tests are: its
+    imports are the standard library's, torch, numpy and the port's own
+    (relative) modules; nothing under tests/."""
+    import sys
+
+    path = REPO / "online_lang_splatting_tpu_torch/tools/verify_artifacts.py"
+    modules = {m for m, _ in _imports(path)}
+    assert {"torch", "numpy"} <= modules
+    assert modules - set(sys.stdlib_module_names) == {"torch", "numpy"}
+    tree = ast.parse(path.read_text())
+    relative = [node.module for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.level]
+    assert relative and all(not (m or "").startswith("tests") for m in relative)

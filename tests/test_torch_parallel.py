@@ -177,3 +177,26 @@ def test_sharded_smoke_run_matches_unsharded():
     assert drift < 5e-3, drift
     errs = [np.linalg.norm(c.t - c.t_gt) for c in fe_d.cameras.values()]
     assert np.median(errs) < 0.15
+
+
+def test_dp_ae_train_step_sums_shard_gradients_in_shard_order():
+    """The step's parameter gradients are the shards' own gradients summed
+    left to right in shard order, then divided by the shard count, bit for
+    bit (8 shards: the mean's 1/8 scales each shard's gradient exactly)."""
+    from unittest import mock
+
+    mesh = named_mesh(["cpu"] * 8)
+    batch = t(np.random.default_rng(6).normal(size=(64, 32)).astype(np.float32))
+    model = ae.EncoderDecoderOnline()
+    opt = ae.make_online_optimizer(model)
+    with mock.patch.object(opt, "step") as step:
+        dp_ae_train_step(model, opt, mesh)(batch)
+    got = step.call_args.args[0]
+    per_shard = [torch.autograd.grad(ae.online_loss(model(xk), xk), opt.params)
+                 for xk in batch.split(batch.shape[0] // mesh.size)]
+    for i, g in enumerate(got):
+        want = per_shard[0][i]
+        for gk in per_shard[1:]:
+            want = want + gk[i]
+        want = want / mesh.size
+        assert torch.equal(g, want), f"parameter {i}: {int((g != want).sum())} differ"

@@ -234,3 +234,50 @@ def test_banded_tracking_run_matches_jax_and_single_device(
     assert np.abs(n(got[0]) - np.eye(4)).max() > 1e-3  # the pose moved
     gt_view = n(lie.se3_exp(t(TAU)))
     assert np.abs(n(got[0]) - gt_view)[:3, 3].max() < np.abs(gt_view[:3, 3]).max()
+
+
+def test_banded_render_gradients_sum_in_band_order(scene):
+    """Every replicated input's gradient (each RenderInputs field, the
+    background and both pose deltas) is the left fold of the bands' own
+    gradients in band order, bit for bit: a fixed order, as JAX's psum.
+    The loss weighs every output pixel by a seeded value, so the bands'
+    terms differ and their float sum depends on the order."""
+    tin, proj, s = scene["tin"], t(scene["proj"]), scene["tset"]
+    rng = np.random.default_rng(5)
+    base = dict(tin._asdict(), bg=t(rng.uniform(size=3).astype(np.float32)),
+                cam_trans_delta=torch.zeros(3), cam_rot_delta=torch.zeros(3))
+    _, band_h, padded_h = shard.band_layout(H, TILE, N_SHARDS)
+    weights = {k: t(rng.normal(size=shape).astype(np.float32)) for k, shape in (
+        ("color", (3, padded_h, W)), ("language", (tin.language.shape[1], padded_h, W)),
+        ("depth", (1, padded_h, W)), ("opacity", (1, padded_h, W)),
+        ("final_t", (padded_h, W)))}
+
+    def leaves():
+        return {k: v.clone().requires_grad_(True) for k, v in base.items()}
+
+    def weighted(out, y0, rows):
+        return sum((getattr(out, k)[..., :rows, :] * w[..., y0:y0 + rows, :]).sum()
+                   for k, w in weights.items())
+
+    def split(x):
+        fields = {k: x[k] for k in RenderInputs._fields}
+        return RenderInputs(**fields), {k: x[k] for k in x if k not in fields}
+
+    x = leaves()
+    inputs, extra = split(x)
+    got = torch.autograd.grad(
+        weighted(shard.banded_render(scene["mesh"], inputs, torch.eye(4), proj, s, **extra),
+                 0, H), list(x.values()))
+    want = [None] * len(base)
+    for k in range(N_SHARDS):
+        rows = min(max(H - k * band_h, 0), band_h)
+        xk = leaves()
+        inputs_k, extra_k = split(xk)
+        out, _ = shard._band_blend(inputs_k, torch.eye(4), proj, s, k, band_h=band_h,
+                                   **extra_k)
+        gk = torch.autograd.grad(weighted(out, k * band_h, rows), list(xk.values()),
+                                 allow_unused=True)
+        want = [a if b is None else b if a is None else a + b for a, b in zip(want, gk)]
+    for name, g, w in zip(base, got, want):
+        assert float(w.abs().max()) > 0, name
+        assert torch.equal(g, w), f"{name}: {int((g != w).sum())} of {g.numel()} differ"
