@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .init import flax_init_
 
 DEPTHS = (3, 3, 27, 3)
@@ -155,8 +156,10 @@ def promote_call(module: nn.Module, weight_dtype: torch.dtype, body, *xs):
 
 def normalize_image(rgb_0_255: torch.Tensor) -> torch.Tensor:
     """(..., 3) RGB in [0, 255] -> CLIP-normalized (SED convention)."""
-    mean = torch.tensor(CLIP_PIXEL_MEAN, dtype=rgb_0_255.dtype, device=rgb_0_255.device)
-    std = torch.tensor(CLIP_PIXEL_STD, dtype=rgb_0_255.dtype, device=rgb_0_255.device)
+    with span("sync.extract.normalize"):  # each constant's upload waits for the device
+        mean = torch.tensor(CLIP_PIXEL_MEAN, dtype=rgb_0_255.dtype, device=rgb_0_255.device)
+    with span("sync.extract.normalize"):
+        std = torch.tensor(CLIP_PIXEL_STD, dtype=rgb_0_255.dtype, device=rgb_0_255.device)
     return (rgb_0_255 - mean) / std
 
 

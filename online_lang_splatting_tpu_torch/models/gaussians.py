@@ -21,6 +21,7 @@ import torch
 from ..ops import sh as sh_ops
 from ..ops.knn import knn_mean_sq_dist
 from ..ops.raster.preprocess import quat_to_rotmat
+from ..utils.profiling import span
 
 
 class GaussianParams(NamedTuple):
@@ -129,8 +130,12 @@ def adam_step(params: GaussianParams, grads: GaussianParams, state: AdamState,
     """One masked Adam step. Inactive slots are frozen entirely."""
     count = state.count + 1
     cf = count.to(torch.float32)
-    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=cf.device), cf)
-    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=cf.device), cf)
+    with span("sync.adam.beta"):
+        beta1 = torch.tensor(b1, dtype=torch.float32, device=cf.device)
+    with span("sync.adam.beta"):
+        beta2 = torch.tensor(b2, dtype=torch.float32, device=cf.device)
+    c1 = 1.0 - torch.pow(beta1, cf)
+    c2 = 1.0 - torch.pow(beta2, cf)
 
     ps, mus, nus = [], [], []
     for p, g, mu, nu, lr in zip(params, grads, state.mu, state.nu, lrs):
@@ -172,7 +177,8 @@ def _alloc_slots(active: torch.Tensor, want: torch.Tensor, max_new: int):
     """Assign up to max_new free slots to the `want` candidates. Returns
     (slot index (M,) int64, ok (M,) bool); not-ok rows carry `capacity`."""
     cap = active.shape[0]
-    free = torch.nonzero(~active).flatten()[:max_new]
+    with span("sync.gaussians.alloc"):
+        free = torch.nonzero(~active).flatten()[:max_new]
     free_idx = torch.full((max_new,), cap, dtype=torch.int64, device=active.device)
     free_idx[:free.shape[0]] = free
     rank = torch.cumsum(want.to(torch.int64), 0) - 1
@@ -183,13 +189,19 @@ def _alloc_slots(active: torch.Tensor, want: torch.Tensor, max_new: int):
 
 def _scatter_rows(dst: torch.Tensor, src: torch.Tensor, slots, ok) -> torch.Tensor:
     out = dst.clone()
-    out[slots[ok]] = src[ok]
+    with span("sync.gaussians.scatter"):
+        to = slots[ok]
+    with span("sync.gaussians.scatter"):
+        out[to] = src[ok]
     return out
 
 
 def _scatter_value(dst: torch.Tensor, slots, ok, value) -> torch.Tensor:
     out = dst.clone()
-    out[slots[ok]] = value
+    with span("sync.gaussians.scatter"):
+        to = slots[ok]
+    with span("sync.gaussians.scatter"):  # the value's upload
+        out[to] = value
     return out
 
 
@@ -235,7 +247,8 @@ def extend_points(params: GaussianParams, aux: GaussianAux, opt: AdamState, *,
         xyz_grad_accum=_scatter_value(aux.xyz_grad_accum, slots, ok, 0.0),
         denom=_scatter_value(aux.denom, slots, ok, 0.0),
     )
-    overflow = bool(valid.sum() > ok.sum())
+    with span("sync.kf.extend"):
+        overflow = bool(valid.sum() > ok.sum())
     return params, aux, opt, overflow
 
 
@@ -310,7 +323,8 @@ def densify_and_prune(params: GaussianParams, aux: GaussianAux, opt: AdamState,
         denom=torch.zeros_like(aux.denom),
         max_radii2d=torch.zeros_like(aux.max_radii2d),
     )
-    overflow = bool((clone_mask.sum() > ok.sum()) | (split_mask.sum() > ok2.sum()))
+    with span("sync.map.densify"):
+        overflow = bool((clone_mask.sum() > ok.sum()) | (split_mask.sum() > ok2.sum()))
     return params, aux, opt, overflow
 
 

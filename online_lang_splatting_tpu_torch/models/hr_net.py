@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .convnext_clip import promote_call, resize_bilinear
 from .init import flax_init_
 
@@ -47,7 +48,11 @@ class PhaseConvTranspose2d(nn.ConvTranspose2d):
             row = []
             for s in (0, 1):
                 (kx, pad_x) = self._TAPS[s]
-                k = self.weight[:, :, list(ky)][:, :, :, list(kx)].transpose(0, 1)
+                # Each list index is uploaded, which waits for the device.
+                with span("sync.extract.upsample"):
+                    k = self.weight[:, :, list(ky)]
+                with span("sync.extract.upsample"):
+                    k = k[:, :, :, list(kx)].transpose(0, 1)
                 row.append(F.conv2d(F.pad(x, (*pad_x, *pad_y)), k, self.bias))
             phases.append(torch.stack(row, -1))  # (N, C, H, W, 2)
         n, c, h, w, _ = phases[0].shape

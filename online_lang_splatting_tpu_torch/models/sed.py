@@ -21,6 +21,7 @@ import torch
 from .autoencoder import ONE_STAGE_DEC, ONE_STAGE_ENC, AutoencoderMLP
 from .convnext_clip import (DEPTHS, DIMS, EMBED_DIM, ConvNeXtCLIPVisual,
                             normalize_image, resize_bilinear)
+from ..utils.profiling import span
 from .hr_net import HighResLanguageFeatureNet
 from .init import make_generator
 
@@ -69,12 +70,14 @@ class LangFeatureExtractor:
         return resize_bilinear(x, self.clip_resolution)
 
     def _hr_inner(self, rgb):
-        feats = self.visual(self._frame(rgb))
+        with span("extract.tower"):
+            feats = self.visual(self._frame(rgb))
         if self.hr is None:
             # The reference's hr_model=None path: the os32 dense CLIP map
             # supervises directly, no refinement.
             return feats["clip_vis_dense"], feats
-        return self.hr(feats["clip_vis_dense"], feats["res3"], feats["res2"]), feats
+        with span("extract.hr"):
+            return self.hr(feats["clip_vis_dense"], feats["res3"], feats["res2"]), feats
 
     @torch.no_grad()
     def dense_clip(self, rgb) -> dict:
@@ -90,10 +93,12 @@ class LangFeatureExtractor:
     @torch.no_grad()
     def encode_frame(self, rgb) -> torch.Tensor:
         """(192, 192, low_dim): the online language supervision map."""
-        hr, _ = self._hr_inner(rgb)
-        _, c, h, w = hr.shape
-        code = self.ae.encode(hr[0].permute(1, 2, 0).reshape(-1, c).float())
-        return code.reshape(h, w, -1)
+        with span("extract.frame"):
+            hr, _ = self._hr_inner(rgb)
+            _, c, h, w = hr.shape
+            with span("extract.ae"):
+                code = self.ae.encode(hr[0].permute(1, 2, 0).reshape(-1, c).float())
+            return code.reshape(h, w, -1)
 
     @torch.no_grad()
     def decode_codes(self, codes) -> torch.Tensor:

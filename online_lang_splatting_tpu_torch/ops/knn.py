@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 
 def knn_mean_sq_dist(points: torch.Tensor, valid: torch.Tensor | None = None,
                      k: int = 3, block: int = 1024) -> torch.Tensor:
@@ -18,7 +20,8 @@ def knn_mean_sq_dist(points: torch.Tensor, valid: torch.Tensor | None = None,
     n = points.shape[0]
     v = torch.ones(n, dtype=torch.bool, device=points.device) if valid is None else valid
     sq = torch.sum(points * points, dim=-1)
-    big = torch.tensor(float("inf"), dtype=points.dtype, device=points.device)
+    with span("sync.knn.inf"):
+        big = torch.tensor(float("inf"), dtype=points.dtype, device=points.device)
     cols = torch.arange(n, device=points.device)
     out = torch.zeros(n, dtype=points.dtype, device=points.device)
     kk = min(k, n)

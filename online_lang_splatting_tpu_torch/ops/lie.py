@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 
 def skew(v: torch.Tensor) -> torch.Tensor:
     """[v]_x with [v]_x @ u = v × u. v: (..., 3) -> (..., 3, 3)."""
@@ -61,18 +63,20 @@ def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     r = so3_exp(theta)
     t = so3_left_jacobian(theta) @ rho
     top = torch.cat([r, t[:, None]], dim=1)
-    bottom = torch.tensor(
-        [[0.0, 0.0, 0.0, 1.0]], dtype=tau.dtype, device=tau.device
-    )
+    with span("sync.lie.row"):  # an upload, which waits for the device
+        bottom = torch.tensor(
+            [[0.0, 0.0, 0.0, 1.0]], dtype=tau.dtype, device=tau.device
+        )
     return torch.cat([top, bottom], dim=0)
 
 
 def rt_to_mat4(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(R, t) -> homogeneous 4x4."""
     top = torch.cat([r, t[:, None]], dim=1)
-    bottom = torch.tensor(
-        [[0.0, 0.0, 0.0, 1.0]], dtype=r.dtype, device=r.device
-    )
+    with span("sync.lie.row"):
+        bottom = torch.tensor(
+            [[0.0, 0.0, 0.0, 1.0]], dtype=r.dtype, device=r.device
+        )
     return torch.cat([top, bottom], dim=0)
 
 

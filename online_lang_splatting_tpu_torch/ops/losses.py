@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
+
 
 def abs_(x: torch.Tensor) -> torch.Tensor:
     """|x| whose gradient at x == 0 is +1, as `jnp.abs` differentiates
@@ -85,7 +87,8 @@ _SCHARR_Y = ((3.0, 0.0, -3.0), (10.0, 0.0, -10.0), (3.0, 0.0, -3.0))
 
 def _depthwise_conv_reflect(img: torch.Tensor, kernel) -> torch.Tensor:
     c = img.shape[0]
-    k = torch.tensor(kernel, dtype=img.dtype, device=img.device)
+    with span("sync.losses.kernel"):
+        k = torch.tensor(kernel, dtype=img.dtype, device=img.device)
     padded = F.pad(img[None], (1, 1, 1, 1), mode="reflect")
     return F.conv2d(padded, k.expand(c, 1, 3, 3), groups=c)[0]
 

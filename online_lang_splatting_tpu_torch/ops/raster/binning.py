@@ -18,8 +18,11 @@ from run to run.
 
 The instance arrays are sized from the exact count of each render, so the
 JAX package's fixed buckets, overflow flag and grow-and-replay are not
-needed: `overflow` is always False. Sizing costs one host sync per render.
-`num_instances` is the pre-cull demand, as in the reference.
+needed: `overflow` is always False. A render syncs with the host three
+times: the instance count that sizes the expansion, and the two
+boolean-mask compactions of the culled instances (each sizes its output
+from the mask on the host). `num_instances` is the pre-cull demand, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.profiling import span
 from .preprocess import Preprocessed, tile_keeps_instance
 
 
@@ -56,7 +60,8 @@ def bin_gaussians_sorted(prep: Preprocessed, *, tiles_x: int, tiles_y: int,
     d_key = torch.where(tt > 0, depth, torch.full_like(depth, float("inf")))
     _, perm = torch.sort(d_key, stable=True)
     tt_s = tt[perm]
-    total = int(tt_s.sum().item())  # the one host sync of a render
+    with span("sync.binning.count"):  # the first of a render's three host syncs
+        total = int(tt_s.sum().item())
     if total == 0:
         zi = torch.zeros(0, dtype=torch.int32, device=device)
         zt = torch.zeros(num_tiles, dtype=torch.int32, device=device)
@@ -86,8 +91,11 @@ def bin_gaussians_sorted(prep: Preprocessed, *, tiles_x: int, tiles_y: int,
         (tx * tile_px).to(torch.float32), (ty * tile_px).to(torch.float32),
         tile_px,
     )
-    tile_id = (ty * tiles_x + tx)[keep]
-    gid = gid[keep]
+    tile_id = ty * tiles_x + tx
+    with span("sync.binning.keep"):
+        tile_id = tile_id[keep]
+    with span("sync.binning.keep"):
+        gid = gid[keep]
     s_tile, order = torch.sort(tile_id, stable=True)
     s_gid = gid[order].to(torch.int32)
     s_tile = s_tile.to(torch.int32)

@@ -28,6 +28,7 @@ from ..ops import lie
 from ..ops.losses import l1_loss
 from ..ops.raster import RasterSettings
 from ..parallel.mesh import sharded_slot_grads
+from ..utils.profiling import span
 from . import losses as L
 from .camera import Camera
 from .renderer import activate, render
@@ -68,41 +69,42 @@ def scan_slot_grads(params: G.GaussianParams, active, proj, slot_r, slot_t,
     for s in range(n_slots):
         if not bool(slot_valid[s]):
             continue
-        p = G.GaussianParams(*(x.detach().requires_grad_(True) for x in params))
-        rho = torch.zeros(3, **f32).requires_grad_(True)
-        theta = torch.zeros(3, **f32).requires_grad_(True)
-        ea = slot_ea[s].detach().clone().requires_grad_(True)
-        eb = slot_eb[s].detach().clone().requires_grad_(True)
-        m2d = torch.zeros((cap, 2), **f32).requires_grad_(True)
-        view = lie.rt_to_mat4(slot_r[s], slot_t[s])
-        out = render(activate(p, active), view, proj, settings,
-                     cam_trans_delta=rho, cam_rot_delta=theta,
-                     means2d_offset=m2d)
-        image = images[s]
-        loss = L.loss_mapping_rgbd(out.color, out.depth, image, depths[s],
-                                   ea, eb, initialization=init_mode)
-        if bool(lang_on[s]):
-            lang_hw = resize_bilinear(langs[s], image.shape[1:])
-            loss = loss + lang_weight * l1_loss(out.language, lang_hw)
-        grads = torch.autograd.grad(loss, [*p, rho, theta, ea, eb, m2d],
-                                    allow_unused=True)
-        with torch.no_grad():
-            for acc, g in zip(grad_acc, grads[:7]):
-                if g is not None:
-                    acc += g
-            for dst, g in zip((g_rho, g_theta, g_ea, g_eb), grads[7:11]):
-                if g is not None:  # exposure is unused in init mode
-                    dst[s] = g
-            visible = (out.radii > 0) & active
-            max_radii = torch.maximum(
-                max_radii, torch.where(visible, out.radii.to(torch.float32),
-                                       torch.zeros_like(max_radii)))
-            grad_accum = grad_accum + torch.where(
-                visible, torch.linalg.norm(grads[11], dim=-1),
-                torch.zeros_like(grad_accum))
-            denom = denom + visible.to(torch.float32)
-            loss_acc = loss_acc + loss.detach()
-            occ[s] = out.n_touched > 0
+        with span("map.slot"):
+            p = G.GaussianParams(*(x.detach().requires_grad_(True) for x in params))
+            rho = torch.zeros(3, **f32).requires_grad_(True)
+            theta = torch.zeros(3, **f32).requires_grad_(True)
+            ea = slot_ea[s].detach().clone().requires_grad_(True)
+            eb = slot_eb[s].detach().clone().requires_grad_(True)
+            m2d = torch.zeros((cap, 2), **f32).requires_grad_(True)
+            view = lie.rt_to_mat4(slot_r[s], slot_t[s])
+            out = render(activate(p, active), view, proj, settings,
+                         cam_trans_delta=rho, cam_rot_delta=theta,
+                         means2d_offset=m2d)
+            image = images[s]
+            loss = L.loss_mapping_rgbd(out.color, out.depth, image, depths[s],
+                                       ea, eb, initialization=init_mode)
+            if bool(lang_on[s]):
+                lang_hw = resize_bilinear(langs[s], image.shape[1:])
+                loss = loss + lang_weight * l1_loss(out.language, lang_hw)
+            grads = torch.autograd.grad(loss, [*p, rho, theta, ea, eb, m2d],
+                                        allow_unused=True)
+            with torch.no_grad():
+                for acc, g in zip(grad_acc, grads[:7]):
+                    if g is not None:
+                        acc += g
+                for dst, g in zip((g_rho, g_theta, g_ea, g_eb), grads[7:11]):
+                    if g is not None:  # exposure is unused in init mode
+                        dst[s] = g
+                visible = (out.radii > 0) & active
+                max_radii = torch.maximum(
+                    max_radii, torch.where(visible, out.radii.to(torch.float32),
+                                           torch.zeros_like(max_radii)))
+                grad_accum = grad_accum + torch.where(
+                    visible, torch.linalg.norm(grads[11], dim=-1),
+                    torch.zeros_like(grad_accum))
+                denom = denom + visible.to(torch.float32)
+                loss_acc = loss_acc + loss.detach()
+                occ[s] = out.n_touched > 0
     return (G.GaussianParams(*grad_acc), loss_acc,
             (g_rho, g_theta, g_ea, g_eb, occ), (max_radii, grad_accum, denom))
 
@@ -193,8 +195,9 @@ class FrameStack:
         if kf_idx in self.images:
             return
         self.images[kf_idx] = image
-        self.depths[kf_idx] = torch.as_tensor(
-            depth, dtype=torch.float32, device=self.device)[None]
+        with span("sync.kf.upload"):
+            self.depths[kf_idx] = torch.as_tensor(
+                depth, dtype=torch.float32, device=self.device)[None]
 
     def set_lang(self, kf_idx: int, lang):
         self.langs[kf_idx] = lang
@@ -223,7 +226,8 @@ def backproject_sample(image, depthmap, w2c, intrinsics, uniform,
     x = (xs.reshape(-1) - cx) / fx * z
     y = (ys.reshape(-1) - cy) / fy * z
     cam_pts = torch.stack([x, y, z], -1)
-    c2w = torch.linalg.inv(w2c)
+    with span("sync.kf.inverse"):  # the inverse's error check reads the device
+        c2w = torch.linalg.inv(w2c)
     world = cam_pts @ c2w[:3, :3].T + c2w[:3, 3]
     rgb = image.reshape(3, -1).T
     valid = z > 0
@@ -305,13 +309,16 @@ class BackEnd:
         op = self.op
 
         def c(v):
-            return torch.tensor(v, dtype=torch.float32, device=self.device)
+            with span("sync.map.lr"):  # each rate's upload waits for the device
+                return torch.tensor(v, dtype=torch.float32, device=self.device)
 
+        xyz = G.expon_lr(step, op["position_lr_init"], op["position_lr_final"],
+                         lr_delay_mult=op["position_lr_delay_mult"],
+                         max_steps=op["position_lr_max_steps"])
+        with span("sync.map.lr"):
+            xyz = xyz.to(self.device)
         return G.LearningRates(
-            xyz=G.expon_lr(
-                step, op["position_lr_init"], op["position_lr_final"],
-                lr_delay_mult=op["position_lr_delay_mult"],
-                max_steps=op["position_lr_max_steps"]).to(self.device),
+            xyz=xyz,
             features_dc=c(op["feature_lr"]),
             features_rest=c(op["feature_lr"] / 20.0),
             scaling=c(op["scaling_lr"]),
@@ -335,13 +342,14 @@ class BackEnd:
             med = float(np.median(depthmap[depthmap > 0])) if (depthmap > 0).any() else 1.0
             point_size = min(0.05, point_size * med)
         n_target = max(int(cam.height * cam.width / downsample), 16)
-        depth_t = torch.as_tensor(depthmap, device=self.device)
+        with span("sync.kf.upload"):
+            depth_t = torch.as_tensor(depthmap, device=self.device)
         uniform = torch.rand(depth_t.numel(), generator=self.generator,
                              device=self.device)
+        with span("sync.kf.upload"):
+            w2c = torch.as_tensor(cam.world_view_transform, device=self.device)
         xyz, rgb, valid = backproject_sample(
-            cam.image, depth_t,
-            torch.as_tensor(cam.world_view_transform, device=self.device),
-            (cam.fx, cam.fy, cam.cx, cam.cy), uniform, n_target)
+            cam.image, depth_t, w2c, (cam.fx, cam.fy, cam.cx, cam.cy), uniform, n_target)
         out = G.extend_points(self.params, self.aux, self.opt, xyz=xyz,
                               rgb=rgb, valid=valid, kf_id=kf_idx,
                               point_size=point_size)
@@ -423,7 +431,8 @@ class BackEnd:
             if self.online_ae is not None:
                 stack.set_coco(cam.uid, cam.coco_lang_feat)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with span("sync.extract.fence"):
+                torch.cuda.synchronize(self.device)
         self.lang_extract_s += time.time() - t0
 
     def _replay_online_ae(self, window, draws, count0: int, init_mode: bool):
@@ -464,8 +473,13 @@ class BackEnd:
         # candidate, so none is dropped (each candidate needs one new slot).
         aux = self.aux
         grads = aux.xyz_grad_accum / torch.clamp(aux.denom, min=1e-12)
-        want = int(((grads >= kw["max_grad"]) & aux.active).sum())
-        while int((~self.aux.active).sum()) < want:
+        with span("sync.map.densify"):
+            want = int(((grads >= kw["max_grad"]) & aux.active).sum())
+        while True:
+            with span("sync.map.densify"):
+                free = int((~self.aux.active).sum())
+            if free >= want:
+                break
             self._grow_capacity()
         noise = G.split_noise(self.generator, self.params.xyz.shape, self.device)
         self.params, self.aux, self.opt, _ = G.densify_and_prune(
@@ -485,7 +499,9 @@ class BackEnd:
 
         def slots(win_vals, rand_vals, fill):
             rest = np.stack([fill] * (n_win - n) + rand_vals + [fill] * (2 - len(picks)))
-            return torch.cat([win_vals, torch.as_tensor(rest, **f32)])
+            with span("sync.map.slots"):
+                rest = torch.as_tensor(rest, **f32)
+            return torch.cat([win_vals, rest])
 
         win_r, win_t, win_ea, win_eb = win
         stack = self.frame_stack
@@ -520,10 +536,14 @@ class BackEnd:
         f32 = dict(dtype=torch.float32, device=dev)
         cams = [self.viewpoints[i] for i in window]
         n = len(cams)
-        win_r = torch.as_tensor(np.stack([c.r for c in cams]), **f32)
-        win_t = torch.as_tensor(np.stack([c.t for c in cams]), **f32)
-        win_ea = torch.tensor([c.exposure_a for c in cams], **f32)
-        win_eb = torch.tensor([c.exposure_b for c in cams], **f32)
+        with span("sync.map.window"):
+            win_r = torch.as_tensor(np.stack([c.r for c in cams]), **f32)
+        with span("sync.map.window"):
+            win_t = torch.as_tensor(np.stack([c.t for c in cams]), **f32)
+        with span("sync.map.window"):
+            win_ea = torch.tensor([c.exposure_a for c in cams], **f32)
+        with span("sync.map.window"):
+            win_eb = torch.tensor([c.exposure_b for c in cams], **f32)
         pose_opt = np.zeros(n_slots, bool)
         exp_opt = np.zeros(n_slots, bool)
         if not self.use_gt_pose:
@@ -531,7 +551,8 @@ class BackEnd:
                 if cams[i].uid != 0:
                     pose_opt[i] = True
         exp_opt[:n] = True
-        exp_opt_t = torch.as_tensor(exp_opt, device=dev)
+        with span("sync.map.window"):
+            exp_opt_t = torch.as_tensor(exp_opt, device=dev)
 
         upd_every = self.init_gaussian_update if init_mode else self.gaussian_update_every
         upd_off = 0 if init_mode else self.gaussian_update_offset
@@ -541,38 +562,39 @@ class BackEnd:
         occ = None
         draws = []
         for j in range(n_iters):
-            count_i = count0 + j + 1
-            # Random anti-forgetting picks, seeded by the 1-based iteration
-            # number as in the reference.
-            picks = (list(np.random.default_rng(count_i).permutation(rand_pool)[:2])
-                     if rand_pool else [])
-            draws.append(picks)
-            (slot_r, slot_t, slot_ea, slot_eb, images, depths, langs, valid,
-             lang_on) = self.slot_inputs(window, picks, n_slots,
-                                         (win_r, win_t, win_ea, win_eb), lang_run)
-            pm, pv, pt = self.keyframe_optimizer_state
-            (self.params, self.opt, self.aux, new_r, new_t, new_ea, new_eb,
-             self.keyframe_optimizer_state, occ, _loss) = mapping_iteration(
-                self.params, self.opt, self.aux, self.proj, slot_r, slot_t,
-                slot_ea, slot_eb, pm, pv, pt, images, depths, langs, valid,
-                lang_on, pose_opt, exp_opt_t, self._lrs(float(count_i)),
-                self.lamda_lang, settings=self.settings, init_mode=init_mode,
-                slot_grads=self.slot_grads)
-            win_r, win_t = new_r[:n], new_t[:n]
-            win_ea, win_eb = new_ea[:n], new_eb[:n]
-            if prune:
-                continue  # the prune iteration fires no cadence events
-            do_update = count_i % upd_every == upd_off
-            do_reset = count_i % rst_every == 0 and not do_update
-            if do_update:
-                self._densify(init_mode)
-            if do_reset:
-                if init_mode:
-                    self.params, self.opt = G.reset_opacity(self.params, self.opt)
-                else:
-                    # Visible = seen by a live window slot this iteration.
-                    self.params, self.opt = G.reset_opacity_nonvisible(
-                        self.params, self.opt, occ[:n].any(dim=0))
+            with span("map.iter"):
+                count_i = count0 + j + 1
+                # Random anti-forgetting picks, seeded by the 1-based iteration
+                # number as in the reference.
+                picks = (list(np.random.default_rng(count_i).permutation(rand_pool)[:2])
+                         if rand_pool else [])
+                draws.append(picks)
+                (slot_r, slot_t, slot_ea, slot_eb, images, depths, langs, valid,
+                 lang_on) = self.slot_inputs(window, picks, n_slots,
+                                             (win_r, win_t, win_ea, win_eb), lang_run)
+                pm, pv, pt = self.keyframe_optimizer_state
+                (self.params, self.opt, self.aux, new_r, new_t, new_ea, new_eb,
+                 self.keyframe_optimizer_state, occ, _loss) = mapping_iteration(
+                    self.params, self.opt, self.aux, self.proj, slot_r, slot_t,
+                    slot_ea, slot_eb, pm, pv, pt, images, depths, langs, valid,
+                    lang_on, pose_opt, exp_opt_t, self._lrs(float(count_i)),
+                    self.lamda_lang, settings=self.settings, init_mode=init_mode,
+                    slot_grads=self.slot_grads)
+                win_r, win_t = new_r[:n], new_t[:n]
+                win_ea, win_eb = new_ea[:n], new_eb[:n]
+                if prune:
+                    continue  # the prune iteration fires no cadence events
+                do_update = count_i % upd_every == upd_off
+                do_reset = count_i % rst_every == 0 and not do_update
+                if do_update:
+                    self._densify(init_mode)
+                if do_reset:
+                    if init_mode:
+                        self.params, self.opt = G.reset_opacity(self.params, self.opt)
+                    else:
+                        # Visible = seen by a live window slot this iteration.
+                        self.params, self.opt = G.reset_opacity_nonvisible(
+                            self.params, self.opt, occ[:n].any(dim=0))
         self.iteration_count = count0 + n_iters
         if self.online_ae is not None and lang_run and self.lang_train:
             self._replay_online_ae(window, draws, count0, init_mode)
@@ -588,9 +610,12 @@ class BackEnd:
                        win_eb, occ):
         """Write the mapped window poses / exposures / visibility back to the
         host cameras, dropping any non-finite update."""
-        r_h, t_h = win_r.cpu().numpy(), win_t.cpu().numpy()
-        ea_h, eb_h = win_ea.cpu().numpy(), win_eb.cpu().numpy()
-        occ_h = occ.cpu().numpy() if occ is not None else None
+        def read(x):
+            with span("sync.map.commit"):
+                return x.cpu().numpy()
+
+        r_h, t_h, ea_h, eb_h = (read(x) for x in (win_r, win_t, win_ea, win_eb))
+        occ_h = read(occ) if occ is not None else None
         if occ_h is not None and occ_h.shape[1] < self.cap:
             occ_h = np.pad(occ_h, ((0, 0), (0, self.cap - occ_h.shape[1])))
         for i, idx in enumerate(window):
@@ -612,7 +637,8 @@ class BackEnd:
         if len(window) != self.window_size:
             return
         occ = np.stack([self.occ_aware_visibility[i] for i in window])
-        n_obs = torch.as_tensor(occ.sum(axis=0), device=self.device)
+        with span("sync.map.prune"):
+            n_obs = torch.as_tensor(occ.sum(axis=0), device=self.device)
         kf_id = self.aux.kf_id
         if self.prune_mode == "odometry":
             to_prune = n_obs < 3
@@ -621,7 +647,8 @@ class BackEnd:
             to_prune = (n_obs <= 3) & (kf_id >= sorted_window[2])
         to_prune = to_prune & self.aux.active
         self.aux = G.prune_only(self.params, self.aux, to_prune)
-        keep = ~to_prune.cpu().numpy()
+        with span("sync.map.prune"):
+            keep = ~to_prune.cpu().numpy()
         for idx in window:
             self.occ_aware_visibility[idx] = self.occ_aware_visibility[idx] & keep
 

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..ops import graphics, losses
+from ..utils.profiling import span
 from .losses import median
 
 
@@ -73,9 +74,11 @@ class Camera:
     @classmethod
     def from_dataset(cls, dataset, idx: int, device) -> "Camera":
         color, depth, pose, gt_lang, _ = dataset[idx]
+        with span("sync.data.upload"):
+            image = torch.as_tensor(color, device=device)
         cam = cls(
             uid=idx,
-            image=torch.as_tensor(color, device=device),
+            image=image,
             depth=depth,
             r_gt=pose[:3, :3].astype(np.float32),
             t_gt=pose[:3, 3].astype(np.float32),
@@ -105,7 +108,8 @@ class Camera:
             float(config["Training"]["edge_threshold"]),
         )
         if self.depth is not None:
-            self.depth_dev = torch.as_tensor(self.depth, device=self.image.device)[None]
+            with span("sync.data.upload"):
+                self.depth_dev = torch.as_tensor(self.depth, device=self.image.device)[None]
 
     def clean(self):
         self.image = None

@@ -22,6 +22,7 @@ import torch
 from ..ops import lie
 from ..ops.raster import RasterSettings
 from ..parallel.tile_shard import banded_render
+from ..utils.profiling import span
 from . import losses as L
 from .camera import Camera
 from .renderer import RenderInputs, render
@@ -40,9 +41,13 @@ def tracking_run(inputs: RenderInputs, view, proj, gt_image, gt_depth,
     f32 = dict(dtype=torch.float32, device=dev)
     track_inputs = inputs._replace(language=inputs.language[:, :0])
     loop_settings = settings._replace(stats=False)
-    ea = torch.as_tensor(exposure_a, **f32)
-    eb = torch.as_tensor(exposure_b, **f32)
-    lr_list = [torch.as_tensor(lrs[i], **f32) for i in (0, 1, 2, 2)]
+    def upload(x):
+        with span("sync.track.upload"):  # waits for the device
+            return torch.as_tensor(x, **f32)
+
+    ea = upload(exposure_a)
+    eb = upload(exposure_b)
+    lr_list = [upload(lrs[i]) for i in (0, 1, 2, 2)]
     b1, b2, eps = 0.9, 0.999, 1e-8
     m = [torch.zeros(3, **f32), torch.zeros(3, **f32),
          torch.zeros((), **f32), torch.zeros((), **f32)]
@@ -55,36 +60,38 @@ def tracking_run(inputs: RenderInputs, view, proj, gt_image, gt_depth,
     n_iters = 0
     converged = False
     while n_iters < max_iters and not converged:
-        rho = torch.zeros(3, **f32).requires_grad_(True)
-        theta = torch.zeros(3, **f32).requires_grad_(True)
-        ea_v = ea.clone().requires_grad_(True)
-        eb_v = eb.clone().requires_grad_(True)
-        out = render_fn(track_inputs, view, proj, loop_settings,
-                        cam_trans_delta=rho, cam_rot_delta=theta)
-        loss_t = L.loss_tracking_rgbd(
-            out.color, out.depth, out.opacity, gt_image, gt_depth, grad_mask,
-            ea_v, eb_v, alpha=alpha, rgb_boundary_threshold=rgb_threshold)
-        grads = torch.autograd.grad(loss_t, [rho, theta, ea_v, eb_v])
-        with torch.no_grad():
-            loss = loss_t.detach()
-            improved = loss < best[0] * (1 - plateau_rtol)
-            better = loss < best[0]
-            best = tuple(torch.where(better, new, old) for new, old in
-                         zip((loss, view, ea, eb), best))
-            t = t + 1
-            steps = []
-            for i, (g, lr) in enumerate(zip(grads, lr_list)):
-                m[i] = b1 * m[i] + (1 - b1) * g
-                v[i] = b2 * v[i] + (1 - b2) * g * g
-                steps.append(-lr * lr_scale * (m[i] / (1 - b1 ** t))
-                             / (torch.sqrt(v[i] / (1 - b2 ** t)) + eps))
-            trans_d, rot_d, d_ea, d_eb = steps
-            tau = torch.cat([trans_d, rot_d])
-            view = lie.se3_exp(tau) @ view
-            ea = ea + d_ea
-            eb = eb + d_eb
-            tau_norm, improved_h = torch.stack(
-                [torch.linalg.norm(tau), improved.to(torch.float32)]).tolist()
+        with span("track.iter"):
+            rho = torch.zeros(3, **f32).requires_grad_(True)
+            theta = torch.zeros(3, **f32).requires_grad_(True)
+            ea_v = ea.clone().requires_grad_(True)
+            eb_v = eb.clone().requires_grad_(True)
+            out = render_fn(track_inputs, view, proj, loop_settings,
+                            cam_trans_delta=rho, cam_rot_delta=theta)
+            loss_t = L.loss_tracking_rgbd(
+                out.color, out.depth, out.opacity, gt_image, gt_depth, grad_mask,
+                ea_v, eb_v, alpha=alpha, rgb_boundary_threshold=rgb_threshold)
+            grads = torch.autograd.grad(loss_t, [rho, theta, ea_v, eb_v])
+            with torch.no_grad():
+                loss = loss_t.detach()
+                improved = loss < best[0] * (1 - plateau_rtol)
+                better = loss < best[0]
+                best = tuple(torch.where(better, new, old) for new, old in
+                             zip((loss, view, ea, eb), best))
+                t = t + 1
+                steps = []
+                for i, (g, lr) in enumerate(zip(grads, lr_list)):
+                    m[i] = b1 * m[i] + (1 - b1) * g
+                    v[i] = b2 * v[i] + (1 - b2) * g * g
+                    steps.append(-lr * lr_scale * (m[i] / (1 - b1 ** t))
+                                 / (torch.sqrt(v[i] / (1 - b2 ** t)) + eps))
+                trans_d, rot_d, d_ea, d_eb = steps
+                tau = torch.cat([trans_d, rot_d])
+                view = lie.se3_exp(tau) @ view
+                ea = ea + d_ea
+                eb = eb + d_eb
+                host = torch.stack([torch.linalg.norm(tau), improved.to(torch.float32)])
+                with span("sync.track.converge"):
+                    tau_norm, improved_h = host.tolist()
         n_iters += 1
         cnt = 0 if improved_h > 0.5 else cnt + 1
         trigger = plateau_rtol > 0 and cnt >= plateau_patience
@@ -152,7 +159,8 @@ class FrontEnd:
             cam.update_rt(prev.r, prev.t)
         if self.use_gt_pose:
             cam.update_rt(cam.r_gt, cam.t_gt)
-        view0 = torch.as_tensor(cam.world_view_transform, device=self.device)
+        with span("sync.track.upload"):
+            view0 = torch.as_tensor(cam.world_view_transform, device=self.device)
         lrs = (self.lr_trans, self.lr_rot, 0.01)
         max_iters = 1 if self.use_gt_pose else self.tracking_itr_num
         render_fn = render if self.mesh is None else partial(banded_render, self.mesh)
@@ -164,11 +172,14 @@ class FrontEnd:
             plateau_patience=self.plateau_patience, keep_best=self.keep_best,
             render_fn=render_fn)
         if not self.use_gt_pose:
-            v = view.cpu().numpy()
+            with span("sync.track.view"):
+                v = view.cpu().numpy()
             if np.isfinite(v).all():
                 cam.update_rt(v[:3, :3], v[:3, 3])
-                cam.exposure_a = float(ea)
-                cam.exposure_b = float(eb)
+                with span("sync.track.exposure"):
+                    cam.exposure_a = float(ea)
+                with span("sync.track.exposure"):
+                    cam.exposure_b = float(eb)
             else:
                 # Never commit a diverged pose: keep the motion-model init
                 # and reset exposure.
@@ -177,11 +188,14 @@ class FrontEnd:
                 cam.exposure_a = 0.0
                 cam.exposure_b = 0.0
         self.track_iters.append(int(n_iters))
-        self.track_losses.append(float(loss))
-        self.median_depth = float(med)
+        with span("sync.track.loss"):
+            self.track_losses.append(float(loss))
+        with span("sync.track.depth"):
+            self.median_depth = float(med)
         if not np.isfinite(self.median_depth):
             self.median_depth = 1.0
-        return visibility.cpu().numpy()
+        with span("sync.track.visibility"):
+            return visibility.cpu().numpy()
 
     def is_keyframe(self, cur_idx: int, last_kf_idx: int,
                     visibility: np.ndarray) -> bool:

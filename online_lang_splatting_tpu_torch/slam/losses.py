@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.losses import abs_
+from ..utils.profiling import span
 
 
 def loss_tracking_rgbd(image, depth, opacity, gt_image, gt_depth, grad_mask,
@@ -53,4 +54,6 @@ def median(values: torch.Tensor) -> torch.Tensor:
 def median_depth(depth, opacity):
     """Median rendered depth where opacity > 0.95 and depth > 0."""
     valid = (depth > 0) & (opacity > 0.95)
-    return median(depth[valid])
+    with span("sync.track.median"):  # the mask's count sizes the selection
+        values = depth[valid]
+    return median(values)

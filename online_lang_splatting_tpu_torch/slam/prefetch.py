@@ -17,6 +17,8 @@ from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any
 
+from ..utils.profiling import set_frame
+
 
 class _Lookahead:
     """Futures for the next `lookahead` indices, computed by `fn` on a
@@ -93,6 +95,7 @@ class CameraPrefetcher:
     def _build(self, idx: int):
         from .camera import Camera
 
+        set_frame(idx)
         cam = Camera.from_dataset(self._dataset, idx, self._device)
         cam.compute_grad_mask(self._config)
         return cam

@@ -41,6 +41,7 @@ import torch
 from .. import pin_f32_matmul
 from ..gui.viewer import GaussianPacket
 from ..ops.raster import RasterSettings
+from ..utils.profiling import set_frame, span
 from .backend import BackEnd
 from .camera import Camera, camera_projection
 from .datasets import load_dataset
@@ -230,12 +231,13 @@ class SLAM:
 
     def _sync_frontend_state(self):
         """Give the frontend the backend's current map + keyframe poses."""
-        self.frontend.render_inputs = activate(
-            self.backend.params, self.backend.aux.active)
-        self.frontend.occ_aware_visibility = dict(self.backend.occ_aware_visibility)
-        for idx, cam in self.backend.viewpoints.items():
-            if idx in self.frontend.cameras:
-                self.frontend.cameras[idx].update_rt(cam.r, cam.t)
+        with span("slam.sync_state"):
+            self.frontend.render_inputs = activate(
+                self.backend.params, self.backend.aux.active)
+            self.frontend.occ_aware_visibility = dict(self.backend.occ_aware_visibility)
+            for idx, cam in self.backend.viewpoints.items():
+                if idx in self.frontend.cameras:
+                    self.frontend.cameras[idx].update_rt(cam.r, cam.t)
 
     def run_single_thread(self, max_frames: Optional[int] = None, start_frame: int = 0,
                           checkpoint_every: Optional[int] = None):
@@ -255,68 +257,76 @@ class SLAM:
         # time lands on the phase that spent it.
         self.phase_times = {"data": 0.0, "track": 0.0, "map": 0.0,
                             "init": 0.0, "kf_insert": 0.0}
+        fences = {phase: "sync.phase." + phase for phase in self.phase_times}
 
         def tick(phase, t0):
-            self._sync()
+            with span(fences[phase]):
+                self._sync()
             now = time.time()
             self.phase_times[phase] += now - t0
             return now
 
         for idx in range(start_frame, n):
-            self._check_gui_pause()
-            t0 = time.time()
-            cam = self._camera(idx)
-            fe.cameras[idx] = cam
-            t0 = tick("data", t0)
+            set_frame(idx)
+            with span("slam.frame"):
+                self._check_gui_pause()
+                t0 = time.time()
+                cam = self._camera(idx)
+                fe.cameras[idx] = cam
+                t0 = tick("data", t0)
 
-            if idx == 0:
-                cam.update_rt(cam.r_gt, cam.t_gt)
-                be.add_next_kf(0, cam, fe.new_keyframe_depth(cam), init=True)
-                be.initialize_map(0, cam)
+                if idx == 0:
+                    cam.update_rt(cam.r_gt, cam.t_gt)
+                    be.add_next_kf(0, cam, fe.new_keyframe_depth(cam), init=True)
+                    be.initialize_map(0, cam)
+                    self._sync_frontend_state()
+                    tick("init", t0)
+                    cur_window = [0]
+                    fe.current_window = cur_window
+                    fe.kf_indices = [0]
+                    continue
+
+                prev = fe.cameras[idx - self.use_every_n_frames]
+                prev2 = fe.cameras.get(idx - 2 * self.use_every_n_frames)
+                visibility = fe.track(cam, prev, self.proj, prev2=prev2)
+                t0 = tick("track", t0)
+                frames_since_kf += 1
+                if self.viewer is not None:
+                    self._submit_view(idx, cam, last_kf, cur_window)
+                with span("slam.kf_decide"):
+                    new_kf = self._create_kf(idx, last_kf, frames_since_kf, visibility,
+                                             cur_window)
+                if not new_kf:
+                    cam.clean()
+                    continue
+
+                with span("slam.kf_insert"):
+                    cur_window, _removed = fe.add_to_window(idx, visibility, cur_window)
+                    fe.current_window = cur_window
+                    fe.kf_indices.append(idx)
+                    fe.occ_aware_visibility[idx] = visibility
+                    depthmap = fe.new_keyframe_depth(cam)
+                    be.viewpoints[idx] = cam
+                    be.current_window = cur_window
+                    be.add_next_kf(idx, cam, depthmap)
+                    be.reset_keyframe_optimizer(be._n_slots())
+                t0 = tick("kf_insert", t0)
+                be.map(cur_window, iters=be.mapping_itr_num, lang_run=be.lang_train)
+                be.map(cur_window, prune=True)
                 self._sync_frontend_state()
-                tick("init", t0)
-                cur_window = [0]
-                fe.current_window = cur_window
-                fe.kf_indices = [0]
-                continue
+                tick("map", t0)
+                last_kf = idx
+                frames_since_kf = 0
+                # Keyframes are irregular, so snapshot at the first keyframe at
+                # least `checkpoint_every` frames after the previous snapshot.
+                if checkpoint_every and idx - last_ckpt >= checkpoint_every:
+                    from . import checkpoint
 
-            prev = fe.cameras[idx - self.use_every_n_frames]
-            prev2 = fe.cameras.get(idx - 2 * self.use_every_n_frames)
-            visibility = fe.track(cam, prev, self.proj, prev2=prev2)
-            t0 = tick("track", t0)
-            frames_since_kf += 1
-            if self.viewer is not None:
-                self._submit_view(idx, cam, last_kf, cur_window)
-            if not self._create_kf(idx, last_kf, frames_since_kf, visibility, cur_window):
-                cam.clean()
-                continue
-
-            cur_window, _removed = fe.add_to_window(idx, visibility, cur_window)
-            fe.current_window = cur_window
-            fe.kf_indices.append(idx)
-            fe.occ_aware_visibility[idx] = visibility
-            depthmap = fe.new_keyframe_depth(cam)
-            be.viewpoints[idx] = cam
-            be.current_window = cur_window
-            be.add_next_kf(idx, cam, depthmap)
-            be.reset_keyframe_optimizer(be._n_slots())
-            t0 = tick("kf_insert", t0)
-            be.map(cur_window, iters=be.mapping_itr_num, lang_run=be.lang_train)
-            be.map(cur_window, prune=True)
-            self._sync_frontend_state()
-            tick("map", t0)
-            last_kf = idx
-            frames_since_kf = 0
-            # Keyframes are irregular, so snapshot at the first keyframe at
-            # least `checkpoint_every` frames after the previous snapshot.
-            if checkpoint_every and idx - last_ckpt >= checkpoint_every:
-                from . import checkpoint
-
-                path = Path(self.save_dir or "results") / f"ckpt_{idx:06d}.npz"
-                path.parent.mkdir(parents=True, exist_ok=True)
-                checkpoint.save_state(self, path, idx + 1)
-                last_ckpt = idx
-                print(f"[checkpoint] saved {path}")
+                    path = Path(self.save_dir or "results") / f"ckpt_{idx:06d}.npz"
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    checkpoint.save_state(self, path, idx + 1)
+                    last_ckpt = idx
+                    print(f"[checkpoint] saved {path}")
 
         self.fps = (n - start_frame) / (time.time() - t_start)
         return self
@@ -359,6 +369,7 @@ class SLAM:
                     return
                 if msg[0] == "init":
                     _, idx, cam, depthmap = msg
+                    set_frame(idx)
                     be.add_next_kf(idx, cam, depthmap, init=True)
                     be.initialize_map(idx, cam)
                     be.current_window = [idx]
@@ -366,6 +377,7 @@ class SLAM:
                     frontend_queue.put(["init_done"])
                 elif msg[0] == "keyframe":
                     _, idx, cam, window, depthmap = msg
+                    set_frame(idx)
                     be.viewpoints[idx] = cam
                     be.current_window = list(window)
                     be.add_next_kf(idx, cam, depthmap)
@@ -417,6 +429,7 @@ class SLAM:
         self.tracked_while_kf_in_flight = 0
         try:
             for idx in range(n):
+                set_frame(idx)
                 self._check_gui_pause()
                 t_frame = time.time()
                 cam = self._camera(idx)

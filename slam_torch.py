@@ -2,7 +2,8 @@
 """Online Language Splatting SLAM — PyTorch/CUDA port.
 
     python slam_torch.py --config configs/rgbd/replicav2/room0.yaml --eval \
-        [--max-frames N] [--weights-dir DIR] [--checkpoint-every N] [--resume CKPT]
+        [--max-frames N] [--weights-dir DIR] [--checkpoint-every N] [--resume CKPT] \
+        [--profile DIR]
 
 The flags and flow of `slam.py` (the JAX package's entry point): the
 dataset of the config (Replica v1 / v2, TUM, EuRoC, RealSense or the
@@ -22,12 +23,17 @@ language channels; their weights are read from `--weights-dir` as the npz
 trees tools/convert_weights.py writes (clip_visual.npz, hr_net.npz,
 autoencoder.npz), each missing file falling back to seeded random weights
 with a warning. `--device cuda` (the default) needs a CUDA device and never
-falls back to the CPU.
+falls back to the CPU. `--profile DIR` records the SLAM run (not the
+evaluation) as a `torch.profiler` trace under DIR for TensorBoard or
+Perfetto, with the program's own spans (frames, tracking and mapping
+iterations, keyframe steps, the extractor's stages, each host sync as
+`sync.*`) beside the kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 from datetime import datetime
 from pathlib import Path
 
@@ -46,6 +52,8 @@ def main(argv=None):
                         help="save a resumable SLAM snapshot every N frames")
     parser.add_argument("--resume", type=str, default=None,
                         help="resume from a ckpt_*.npz snapshot")
+    parser.add_argument("--profile", type=str, default=None,
+                        help="write a torch.profiler trace of the SLAM run to this directory")
     args = parser.parse_args(argv)
 
     from online_lang_splatting_tpu_torch import entry_device
@@ -83,8 +91,13 @@ def main(argv=None):
 
         start_frame = checkpoint.load_state(slam, args.resume)
         print(f"Resumed from {args.resume} at frame {start_frame}")
-    slam.run(max_frames=args.max_frames, start_frame=start_frame,
-             checkpoint_every=args.checkpoint_every)
+    with contextlib.ExitStack() as stack:
+        if args.profile:
+            from online_lang_splatting_tpu_torch.utils.profiling import trace
+
+            stack.enter_context(trace(args.profile))
+        slam.run(max_frames=args.max_frames, start_frame=start_frame,
+                 checkpoint_every=args.checkpoint_every)
     print(f"Total FPS: {slam.fps:.3f}")
     if slam.phase_times:  # single-thread mode
         total = sum(slam.phase_times.values())
