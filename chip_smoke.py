@@ -156,11 +156,22 @@ non-zero):
      cut to 350 iterations), launches counted, its extractor (built by
      `load_extractor_from_dir` on the tool's output) encoding phase 5's
      frame bit-equal to phase 3's extractor;
+ 14. (run after phase 4) the preprocess kernels (csrc/preprocess_fwd.cu,
+     csrc/preprocess_bwd.cu) on phase 3's map at the last frame's pose,
+     against their plain pair on the card at the config's SH degree and at
+     degree 3 (seeded SH): the integer outputs exact, the floats within
+     PREP_FWD_TOL, tracking's and mapping's gradients within PREP_GRAD_TOL
+     of the largest leaf's norm and bit-equal from run to run; 3 tracking
+     iterations launching them, no plain call; the times of the forward and
+     of both backward instances (one wrapper call, the launches in a
+     replayed CUDA graph, the plain versions) beside their bytes' bound;
+   every path checked for launches also holds the preprocess to 0 plain
+   calls;
 then one JSON line of the disk-entry numbers, one of the language numbers,
 one of the 3D-evaluation numbers, one of the language tools' numbers, one
 of the multi-device numbers, one of the domain numbers, one of the
-repeatability numbers, one of the weight-port tool's numbers, one of
-per-kernel results (the forward, the
+repeatability numbers, one of the weight-port tool's numbers, one of the
+preprocess kernels' numbers, one of per-kernel results (the forward, the
 backward's rows and its reduce kernel, each compiled instance with its
 launches per path) and, last, the ok line.
 
@@ -265,7 +276,7 @@ def phase1_build():
         print(f"[phase1] ptxas {row['kernel']}: {row.get('registers')} registers, "
               f"{row.get('spill_stores')} B spill stores, {row.get('spill_loads')} B "
               f"spill loads, {row.get('stack')} B stack, {row.get('smem')} B static smem")
-    expected = set(kernels.instance_names())
+    expected = set(kernels.instance_names()) | set(kernels.preprocess_instance_names())
     if info["built"] and {row["kernel"] for row in ptxas} != expected:
         raise AssertionError(f"the build log's kernel instances "
                              f"{sorted(row['kernel'] for row in ptxas)} are not {sorted(expected)}")
@@ -406,12 +417,25 @@ def phase2_goldens(dev):
 
 
 def _launch_counts(tiled) -> dict:
-    stats = {"fwd": tiled.FWD_STATS, "bwd": tiled.BWD_STATS, "reduce": tiled.REDUCE_STATS}
+    """The blend kernels' launch counts and, as `prep_*`, the preprocess
+    kernels' (per SH degree in `prep_*_by_channels`)."""
+    from online_lang_splatting_tpu_torch.ops.raster import preprocess
+
+    stats = {"fwd": tiled.FWD_STATS, "bwd": tiled.BWD_STATS, "reduce": tiled.REDUCE_STATS,
+             "prep_fwd": preprocess.FWD_STATS, "prep_bwd": preprocess.BWD_STATS}
     counts = {f"{k}_launches": v.launches for k, v in stats.items()}
     counts.update({f"{k}_plain": v.plain_calls for k, v in stats.items()})
     counts.update({f"{k}_by_channels": dict(v.launches_by_channels) for k, v in stats.items()})
     counts["reduce_by_channels_ctas"] = dict(tiled.REDUCE_STATS.launches_by_channels_ctas)
     return counts
+
+
+def _check_prep_launches(counts: dict, where: str):
+    """Every render of a path ran the preprocess kernel, none its plain pair."""
+    if counts["prep_fwd_launches"] == 0:
+        raise AssertionError(f"{where}: the preprocess kernel was never launched: {counts}")
+    if counts["prep_fwd_plain"] or counts["prep_bwd_plain"]:
+        raise AssertionError(f"{where}: a plain preprocess ran: {counts}")
 
 
 def _check_launches(counts: dict, where: str):
@@ -420,6 +444,7 @@ def _check_launches(counts: dict, where: str):
         raise AssertionError(f"{where}: a blend kernel was never launched: {counts}")
     if counts["fwd_plain"] or counts["bwd_plain"] or counts["reduce_plain"]:
         raise AssertionError(f"{where}: a plain blend ran: {counts}")
+    _check_prep_launches(counts, where)
 
 
 def phase3_main_path(config_path: str, frames: int, dev):
@@ -844,6 +869,259 @@ def phase4_times(slam, dev, build):
             results[f_lang] = r
             _print_times(f"[phase4] F_lang {f_lang}", r, build, w, h, stats)
     return results
+
+
+# The preprocess kernels against their plain pair on the card: the
+# integers exact (the kernel rounds as the plain version's PyTorch ops do);
+# the floats within PREP_FWD_TOL of each field's largest value (the colour's
+# view direction is a PyTorch norm in the plain version); each gradient
+# within PREP_GRAD_TOL of the largest leaf's norm (sums over every Gaussian
+# taken in another order).
+PREP_FWD_TOL, PREP_GRAD_TOL = 1e-6, 1e-5
+PREP_INT_FIELDS = ("valid", "radius", "rect_min", "rect_max", "tiles_touched")
+PREP_FLOAT_FIELDS = ("xy", "depth", "conic", "color")
+# The leaves tracking differentiates (the camera only) and mapping's.
+PREP_SUBSETS = {"pose": ("viewmatrix", "projmatrix"),
+                "all": ("means3d", "scales", "quats", "shs", "means2d_offset", "viewmatrix",
+                        "projmatrix")}
+
+
+def _prep_args(inputs: dict, view, proj, settings: dict, sh_degree: int):
+    full = proj @ view
+    campos = -view[:3, :3].T @ view[:3, 3]
+    kw = dict(sh_degree=sh_degree, width=settings["image_width"],
+              height=settings["image_height"], tan_fovx=settings["tanfovx"],
+              tan_fovy=settings["tanfovy"], tile=settings["tile"])
+    leaves = dict(means3d=inputs["means3d"], scales=inputs["scales"], quats=inputs["quats"],
+                  shs=inputs["shs"], viewmatrix=view, projmatrix=full,
+                  means2d_offset=torch.zeros_like(inputs["means3d"][:, :2]))
+    return leaves, campos, kw
+
+
+def preprocess_check(inputs: dict, view, proj, settings: dict, *, sh_degree: int,
+                     seed: int = 0) -> dict:
+    """The preprocess kernels (`project_gaussians` on the card) against the
+    plain pair on the card at these inputs: the forward's fields, and for
+    tracking's and mapping's leaves the gradients of random cotangents on
+    every float output, twice (bit for bit) against
+    `preprocess_backward_plain`. `inputs`: means3d, scales, quats,
+    opacities, shs; `proj` the intrinsics projection; `settings`:
+    image_width, image_height, tanfovx, tanfovy, tile."""
+    from online_lang_splatting_tpu_torch.ops.raster import preprocess as P
+
+    leaves, campos, kw = _prep_args(inputs, view, proj, settings, sh_degree)
+    opac = inputs["opacities"]
+
+    def run(fn, need=()):
+        x = {k: v.detach().clone().requires_grad_(k in need) for k, v in leaves.items()}
+        return fn(x["means3d"], x["scales"], x["quats"], opac, x["viewmatrix"],
+                  x["projmatrix"], campos, shs=x["shs"], means2d_offset=x["means2d_offset"],
+                  **kw), x
+
+    with torch.no_grad():
+        ref, _ = run(P.preprocess)
+        got, _ = run(P.project_gaussians)
+    res = {"gaussians": int(opac.shape[0]), "valid": int(ref.valid.sum()),
+           "sh_degree": sh_degree,
+           "int_mismatch": {f: int((getattr(got, f) != getattr(ref, f)).sum())
+                            for f in PREP_INT_FIELDS},
+           "fwd_err": {f: float((getattr(got, f) - getattr(ref, f)).abs().max()
+                                / max(float(getattr(ref, f).abs().max()), 1e-30))
+                       for f in PREP_FLOAT_FIELDS}}
+    gen = torch.Generator(device=view.device).manual_seed(seed)
+    cots = {f: torch.randn(getattr(ref, f).shape, generator=gen, device=view.device)
+            for f in PREP_FLOAT_FIELDS}
+    for subset, need in PREP_SUBSETS.items():
+        def kernel_grads():
+            out, x = run(P.project_gaussians, need)
+            loss = sum((getattr(out, f) * cots[f]).sum() for f in PREP_FLOAT_FIELDS)
+            return dict(zip(need, torch.autograd.grad(loss, [x[k] for k in need])))
+
+        g1, g2 = kernel_grads(), kernel_grads()
+        plain = P.preprocess_backward_plain(
+            leaves["means3d"], leaves["scales"], leaves["quats"], leaves["shs"], None,
+            view, leaves["projmatrix"], campos, *(cots[f] for f in PREP_FLOAT_FIELDS),
+            sh_degree=sh_degree, scale_modifier=1.0, width=kw["width"], height=kw["height"],
+            tan_fovx=kw["tan_fovx"], tan_fovy=kw["tan_fovy"],
+            gaussian_grads=subset == "all", matrix_grads=True)
+        ref_g = dict(zip(("means3d", "scales", "quats", "shs", "cov3d", "viewmatrix",
+                          "projmatrix"), plain), means2d_offset=cots["xy"])
+        largest = max(float(ref_g[k].norm()) for k in need)
+        res[subset] = {
+            "err_vs_largest": {k: float((g1[k] - ref_g[k]).norm()) / largest for k in need},
+            "err_own": {k: float((g1[k] - ref_g[k]).norm()) / max(float(ref_g[k].norm()), 1e-30)
+                        for k in need},
+            "repeat_bits_differ": sum(_bits_differ(g1[k], g2[k]) for k in need)}
+    return res
+
+
+def check_preprocess(res: dict, where: str):
+    bad = [f"{f}: {n} differ" for f, n in res["int_mismatch"].items() if n]
+    bad += [f"{f}: {e:.2e}" for f, e in res["fwd_err"].items() if not e <= PREP_FWD_TOL]
+    for subset in PREP_SUBSETS:
+        r = res[subset]
+        bad += [f"{subset} d_{k}: {e:.2e}" for k, e in r["err_vs_largest"].items()
+                if not e <= PREP_GRAD_TOL]
+        if r["repeat_bits_differ"]:
+            bad.append(f"{subset}: the backward differs from itself in "
+                       f"{r['repeat_bits_differ']} values")
+    if bad:
+        raise AssertionError(f"{where}: preprocess kernels vs plain: {bad}; {json.dumps(res)}")
+
+
+def preprocess_tracking_counts(inputs: dict, view, proj, settings: dict, iters: int) -> dict:
+    """Launch counts over `iters` tracking iterations (`tracking_run`) on
+    these inputs, from a pose off the one their render is taken at."""
+    from online_lang_splatting_tpu_torch.ops import lie
+    from online_lang_splatting_tpu_torch.ops.raster import RasterSettings, tiled
+    from online_lang_splatting_tpu_torch.slam.frontend import tracking_run
+    from online_lang_splatting_tpu_torch.slam.renderer import RenderInputs, render
+
+    s = RasterSettings(image_height=settings["image_height"],
+                       image_width=settings["image_width"], tanfovx=settings["tanfovx"],
+                       tanfovy=settings["tanfovy"], sh_degree=0, tile=settings["tile"])
+    ri = RenderInputs(xyz=inputs["means3d"], opacity=inputs["opacities"],
+                      scales=inputs["scales"], quats=inputs["quats"], shs=inputs["shs"],
+                      language=torch.zeros_like(inputs["means3d"][:, :0]))
+    with torch.no_grad():
+        gt = render(ri, view, proj, s)
+        start = lie.se3_exp(torch.tensor([0.01, -0.01, 0.02, 0.005, -0.004, 0.003],
+                                         device=view.device)) @ view
+    mask = torch.ones_like(gt.depth)
+    _reset(tiled)
+    out = tracking_run(ri, start, proj, gt.color, gt.depth, mask, 0.0, 0.0,
+                       (0.001, 0.003, 0.01), settings=s, max_iters=iters)
+    torch.cuda.synchronize()
+    return dict(_launch_counts(tiled), iters=out[3])
+
+
+def _prep_bytes(p: int, sh_read: int, *, forward: bool, gauss: bool) -> int:
+    """Bytes the preprocess must move for `p` Gaussians: each input read
+    once and each output written once. Forward: mean, scale, rotation,
+    opacity and `sh_read` SH floats in; xy, depth, conic, colour, valid,
+    radius, two rects and the tile count out. Backward: mean, scale,
+    rotation in, the cotangents of xy, depth, conic (and colour and the SH
+    floats, and every per-Gaussian gradient out, with `gauss`), and the
+    two 4x4 matrices."""
+    if forward:
+        return p * (4 * (3 + 3 + 4 + 1 + sh_read) + 4 * (2 + 1 + 3 + 3) + 1 + 4 * (1 + 2 + 2 + 1))
+    per = 4 * (3 + 3 + 4) + 4 * (2 + 1 + 3)
+    if gauss:
+        per += 4 * (3 + sh_read) + 4 * (3 + 3 + 4 + sh_read)
+    return p * per + 2 * 16 * 4
+
+
+def phase14_preprocess(slam, dev) -> dict:
+    """The preprocess kernels on phase 3's map at the last frame's pose:
+    against the plain pair at SH degree 0 (the config's) and 3 (the map's
+    positions and shapes, seeded SH), a tracking iteration's launches, and
+    the times of the forward, the backward (tracking's and mapping's
+    instances) and their plain versions."""
+    from online_lang_splatting_tpu_torch.ops.raster import kernels, preprocess as P
+    from online_lang_splatting_tpu_torch.slam.renderer import activate
+    from online_lang_splatting_tpu_torch.utils.profiling import graph_ms
+
+    s, fe, be = slam.settings, slam.frontend, slam.backend
+    view = torch.as_tensor(fe.cameras[max(fe.cameras)].world_view_transform, device=dev)
+    act = activate(be.params, be.aux.active)
+    inputs = dict(means3d=act.xyz.detach(), scales=act.scales.detach(),
+                  quats=act.quats.detach(), opacities=act.opacity.detach(),
+                  shs=act.shs.detach())
+    settings = dict(image_width=s.image_width, image_height=s.image_height,
+                    tanfovx=s.tanfovx, tanfovy=s.tanfovy, tile=s.tile)
+    out = {"checks": {}}
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for deg in (s.sh_degree, 3):
+        ins = inputs if deg == s.sh_degree else dict(
+            inputs, shs=torch.randn((inputs["means3d"].shape[0], 16, 3), generator=gen,
+                                    device=dev) * 0.3)
+        res = preprocess_check(ins, view, slam.proj, settings, sh_degree=deg, seed=deg)
+        print(f"[phase14] SH {deg}: " + json.dumps(res))
+        check_preprocess(res, f"phase14 SH {deg}")
+        out["checks"][deg] = res
+    counts = preprocess_tracking_counts(inputs, view, slam.proj, settings, iters=3)
+    print(f"[phase14] tracking iterations {counts['iters']}: launches " + json.dumps(counts))
+    if (counts["prep_fwd_plain"] or counts["prep_bwd_plain"]
+            or counts["prep_fwd_launches"] != counts["iters"] + 1
+            or counts["prep_bwd_launches"] != counts["iters"]):
+        raise AssertionError(f"phase14: tracking's preprocess launches {counts}")
+    out["tracking_counts"] = counts
+
+    # Times at the map's shape (SH degree of the config), CUDA events: `ms`
+    # one wrapper call with the host's allocations and enqueue, `device_ms`
+    # the launches alone in a replayed CUDA graph, `plain_ms` the plain
+    # version (the forward: `preprocess`; the backward: its autograd, the
+    # path the kernels replace, and `preprocess_backward_plain`).
+    deg = s.sh_degree
+    leaves, campos, kw = _prep_args(inputs, view, slam.proj, settings, deg)
+    cam = P._Camera(deg, 1.0, kw["width"], kw["height"], kw["tan_fovx"], kw["tan_fovy"],
+                    kw["tile"])
+    p = inputs["means3d"].shape[0]
+    fwd_in = (leaves["means3d"], leaves["scales"], leaves["quats"],
+              inputs["opacities"].contiguous(), leaves["shs"], None, view,
+              leaves["projmatrix"], campos, None)
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+    fwd_out = (torch.empty((p, 2), **f32), torch.empty(p, **f32), torch.empty((p, 3), **f32),
+               torch.empty((p, 3), **f32), torch.empty(p, dtype=torch.bool, device=dev),
+               torch.empty(p, **i32), torch.empty((p, 2), **i32), torch.empty((p, 2), **i32),
+               torch.empty(p, **i32))
+    scalars = cam.kernel_scalars()
+    k_coef = leaves["shs"].shape[1]
+
+    def fwd_launch():
+        kernels.launch_preprocess_forward(fwd_in, fwd_out, sh_degree=deg, sh_coeffs=k_coef,
+                                          tile=kw["tile"], **scalars)
+
+    args = (leaves["means3d"], leaves["scales"], leaves["quats"], inputs["opacities"], view,
+            leaves["projmatrix"], campos)
+    sh_read = 3 * (deg + 1) ** 2
+    times = {"fwd": {
+        "ms": _time(lambda: P.project_gaussians(*args, shs=leaves["shs"], **kw), 20),
+        "device_ms": graph_ms(fwd_launch, 50),
+        "plain_ms": _time(lambda: P.preprocess(*args, shs=leaves["shs"], **kw), 5),
+        "bytes": _prep_bytes(p, sh_read, forward=True, gauss=True)}}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cots = [torch.randn(shape, generator=gen, device=dev)
+            for shape in ((p, 2), (p,), (p, 3), (p, 3))]
+    bwd_in = (leaves["means3d"], leaves["scales"], leaves["quats"], leaves["shs"], None, view,
+              leaves["projmatrix"], campos)
+    for subset, gauss in (("pose", False), ("all", True)):
+        def bwd_buffers(gauss=gauss):
+            grads = ((torch.empty_like(leaves["means3d"]), torch.empty_like(leaves["scales"]),
+                      torch.empty_like(leaves["quats"]), torch.empty_like(leaves["shs"]), None)
+                     if gauss else (None,) * 5)
+            return (grads, torch.empty((kernels.preprocess_blocks(p), 32), **f32),
+                    torch.empty((2, 4, 4), **f32))
+
+        def bwd_launch(grads, partials, matrices, gauss=gauss):
+            kernels.launch_preprocess_backward(
+                bwd_in, cots if gauss else cots[:3] + [None], grads, partials,
+                sh_degree=deg, sh_coeffs=k_coef, **scalars)
+            kernels.launch_preprocess_reduce(partials, matrices)
+
+        buffers = bwd_buffers()
+        need = PREP_SUBSETS[subset]
+        x = {k: v.detach().clone().requires_grad_(k in need) for k, v in leaves.items()}
+        ref = P.preprocess(x["means3d"], x["scales"], x["quats"], inputs["opacities"],
+                           x["viewmatrix"], x["projmatrix"], campos, shs=x["shs"],
+                           means2d_offset=x["means2d_offset"], **kw)
+        loss = sum((getattr(ref, f) * c).sum() for f, c in zip(PREP_FLOAT_FIELDS, cots))
+        wrt = [x[k] for k in need]
+        times[f"bwd_{subset}"] = {
+            "ms": _time(lambda: bwd_launch(*bwd_buffers()), 20),
+            "device_ms": graph_ms(lambda: bwd_launch(*buffers), 50),
+            "plain_ms": _time(lambda: torch.autograd.grad(loss, wrt, retain_graph=True), 5),
+            "plain_transcribed_ms": _time(lambda: P.preprocess_backward_plain(
+                *bwd_in, *cots, sh_degree=deg, scale_modifier=1.0, width=kw["width"],
+                height=kw["height"], tan_fovx=kw["tan_fovx"], tan_fovy=kw["tan_fovy"],
+                gaussian_grads=gauss), 5),
+            "bytes": _prep_bytes(p, sh_read, forward=False, gauss=gauss)}
+    for r in times.values():
+        r["bound_ms"] = r["bytes"] / PEAK_BYTES * 1e3
+        r["share"] = r["bound_ms"] / r["device_ms"]
+    print("[phase14] times at P = %d, SH %d: %s" % (p, deg, json.dumps(times)))
+    out.update(times=times, gaussians=p, live=int(be.aux.active.sum()))
+    return out
 
 
 def _norm_err_t(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1817,6 +2095,7 @@ def _path_counts(tiled, where: str, backward: bool = True, **extra) -> dict:
         raise AssertionError(f"{where}: a blend kernel was never launched: {counts}")
     if counts["fwd_plain"] or counts["bwd_plain"] or counts["reduce_plain"]:
         raise AssertionError(f"{where}: a plain blend ran: {counts}")
+    _check_prep_launches(counts, where)
     return dict(counts, **extra)
 
 
@@ -1869,9 +2148,11 @@ def _band_order_check(mesh, inputs, view, proj, settings, dev) -> dict:
 
 
 def _reset(tiled):
-    tiled.FWD_STATS.reset()
-    tiled.BWD_STATS.reset()
-    tiled.REDUCE_STATS.reset()
+    from online_lang_splatting_tpu_torch.ops.raster import preprocess
+
+    for stats in (tiled.FWD_STATS, tiled.BWD_STATS, tiled.REDUCE_STATS,
+                  preprocess.FWD_STATS, preprocess.BWD_STATS):
+        stats.reset()
 
 
 def _same_run(x, y) -> dict:
@@ -3144,6 +3425,7 @@ def main(argv=None):
     timed("phase2", phase2_goldens, dev)
     slam, counts, main_path = timed("phase3", phase3_main_path, args.config, args.frames, dev)
     times = timed("phase4", phase4_times, slam, dev, build)
+    prep = timed("phase14", phase14_preprocess, slam, dev)
     extractor = timed("phase5", phase5_extractor, slam, dev)
     # Phase 10 reads phase 3's SLAM, which goes before phase 6, so that
     # phase 8's peak memory does not hold it.
@@ -3285,6 +3567,7 @@ def main(argv=None):
     print(json.dumps({"domain": dict(domain, card=smi, phase_wall_s=walls)}, default=float))
     print(json.dumps({"repeatability": dict(repeat, card=smi)}, default=float))
     print(json.dumps({"weights_tool": dict(weights_tool, card=smi)}, default=float))
+    print(json.dumps({"preprocess": dict(prep, card=smi)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

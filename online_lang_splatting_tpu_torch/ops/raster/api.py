@@ -4,8 +4,10 @@ Backends:
   "oracle" — dense compositor (exact, O(P·H·W); tests).
   "cuda"   — binning + the hand-written blend kernels; on CPU tensors the
              kernels' plain PyTorch versions.
-Camera-pose gradients come from the (rho, theta) perturbation applied
-through `lie.se3_exp` before the view and full projection are formed.
+Both take the preprocess of `preprocess.project_gaussians` (the
+hand-written preprocess kernels on CUDA tensors). Camera-pose gradients
+come from the (rho, theta) perturbation applied through `lie.se3_exp`
+before the view and full projection are formed.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from .. import lie
 from . import config as C
 from .oracle import blend_oracle
-from .preprocess import preprocess
+from .preprocess import project_gaussians
 from .tiled import blend_tiled
 
 
@@ -64,7 +66,7 @@ def project(means3d, opacities, scales, quats, *, viewmatrix, projmatrix,
     # Camera centre: constant with respect to the pose deltas.
     w2c0 = viewmatrix.detach()
     campos = -w2c0[:3, :3].T @ w2c0[:3, 3]
-    return preprocess(
+    return project_gaussians(
         means3d, scales, quats, opacities, viewmatrix, full_proj, campos,
         shs=shs, colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp,
         sh_degree=settings.sh_degree, scale_modifier=settings.scale_modifier,

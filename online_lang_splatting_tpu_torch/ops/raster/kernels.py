@@ -1,4 +1,5 @@
-"""Build and launch the hand-written blend kernels (csrc/*.cu).
+"""Build and launch the hand-written kernels (csrc/*.cu): the blend's and
+the preprocess's.
 
 The CUDA sources have a plain C interface; each `.cu` is compiled with
 `nvcc` for `sm_90a` (all at once, one process each) and linked into one
@@ -17,7 +18,10 @@ csrc/blend_common.cuh). The reduce kernel is compiled per row width (6 +
 C up to 16, 32, 64 or 70: its shared-memory rows) and per count K of CTAs per tile (1, 4, 9, 16 as constants, any
 other at run time): `reduce_instance`. The backward's rows need no fill;
 its `stored` flags (`flag_stride` bytes per instance) do, and the reduce
-reads only the flagged rows.
+reads only the flagged rows. The preprocess kernels
+(csrc/preprocess_fwd.cu, csrc/preprocess_bwd.cu) are compiled per SH
+degree 0-3 and -1 (colours precomputed), the backward also per set of
+gradients it writes (`preprocess_instance_names`).
 
 `--fmad=false` keeps the kernels' float arithmetic operation for operation
 the same as the JAX reference's (no fused multiply-adds the source does not
@@ -34,7 +38,9 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -50,7 +56,7 @@ MIN_CHANNELS, MAX_CHANNELS = 4, 64
 EXACT_WIDTHS = (4, 7, 19)
 PADDED_WIDTHS = (8, 12, 16, 20, 24, 28, 32, 48, 64)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The reduce kernel's compiled row widths (each runs any 6 + C up to it),
 # and the CTAs per tile it is compiled for (any other K runs on the
 # instance with K read at run time, named 0).
@@ -60,6 +66,44 @@ _EXTERN = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
 
 _lib = None
 build_info: dict = {}
+
+
+@dataclass
+class KernelStats:
+    """Launch counters of one kernel and of its plain version, in total and
+    per channel count C (the preprocess's: per SH degree, -1 for precomputed
+    colours); launches given their CTAs per tile K (the reduce's) also per
+    "C/K". The threaded SLAM mode renders from two host threads, so every
+    update holds the lock."""
+
+    launches: int = 0
+    plain_calls: int = 0
+    launches_by_channels: dict[int, int] = field(default_factory=dict)
+    plain_by_channels: dict[int, int] = field(default_factory=dict)
+    launches_by_channels_ctas: dict[str, int] = field(default_factory=dict)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
+                                  compare=False)
+
+    def count(self, channels: int, *, plain: bool, ctas: int | None = None) -> None:
+        with self._lock:
+            by = self.plain_by_channels if plain else self.launches_by_channels
+            by[channels] = by.get(channels, 0) + 1
+            if plain:
+                self.plain_calls += 1
+            else:
+                self.launches += 1
+                if ctas is not None:
+                    key = f"{channels}/{ctas}"
+                    by_k = self.launches_by_channels_ctas
+                    by_k[key] = by_k.get(key, 0) + 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.plain_calls = 0
+            self.launches_by_channels.clear()
+            self.plain_by_channels.clear()
+            self.launches_by_channels_ctas.clear()
 
 
 def _nvcc() -> str:
@@ -111,7 +155,7 @@ def instances() -> list[tuple[int, bool]]:
 
 
 def instance_names() -> list[str]:
-    """Every compiled kernel instance, as `ptxas_summary` names it."""
+    """Every compiled blend kernel instance, as `ptxas_summary` names it."""
     reduce = sorted({reduce_instance(c, k) for c in range(MIN_CHANNELS, MAX_CHANNELS + 1)
                      for k in (*REDUCE_CTAS, REDUCE_CTAS[-1] + 1)})
     return ([instance_name(k, c) for k in ("fwd", "bwd") for c, _ in instances()]
@@ -121,13 +165,32 @@ def instance_names() -> list[str]:
 def entry_points(csrc: Path = _CSRC) -> dict[str, list]:
     """The ctypes argument types of every `extern "C"` entry point of the
     sources in `csrc`, parsed from their signatures: a pointer (or the
-    stream) is c_void_p, anything else c_int. Without them ctypes would
-    pass every Python int as a 32-bit int and cut the pointers."""
+    stream) is c_void_p, a float c_float, anything else c_int. Without them
+    ctypes would pass every Python int as a 32-bit int and cut the
+    pointers."""
     found = {}
     for src in sorted(csrc.glob("*.cu")):
         for name, params in _EXTERN.findall(src.read_text()):
-            found[name] = [_P if "*" in p else _I for p in params.split(",")]
+            found[name] = [_P if "*" in p else (_F if p.split()[0] == "float" else _I)
+                           for p in params.split(",")]
     return found
+
+
+# The preprocess's SH degrees (-1: colours precomputed) and the sets of
+# gradients its backward writes: (per-Gaussian, matrices).
+PREPROCESS_DEGREES = (-1, 0, 1, 2, 3)
+PREPROCESS_GRADS = ((True, True), (True, False), (False, True))
+
+
+def preprocess_instance_names() -> list[str]:
+    """Every compiled preprocess kernel instance, as `ptxas_summary` names
+    it: `preprocess_fwd_kernel<0>`, `preprocess_bwd_kernel<3, false, true>`
+    (degree, per-Gaussian gradients, matrix gradients), and the reduce."""
+    flag = {True: "true", False: "false"}
+    return ([f"preprocess_fwd_kernel<{d}>" for d in PREPROCESS_DEGREES]
+            + [f"preprocess_bwd_kernel<{d}, {flag[g]}, {flag[m]}>"
+               for d in PREPROCESS_DEGREES for g, m in PREPROCESS_GRADS]
+            + ["preprocess_reduce_kernel"])
 
 
 # This package's entry points and their signatures, read from csrc/.
@@ -210,21 +273,33 @@ def library() -> ctypes.CDLL:
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
-_KERNEL = re.compile(r"_ZN5blend(\d+)(\w+?)I(.*)EEvP")
-_TEMPLATE_ARG = re.compile(r"L([ib])(\d+)E")
+_NAMESPACED = re.compile(r"_ZN(\d+)")
+_LENGTH = re.compile(r"\d+")
+_TEMPLATE_ARG = re.compile(r"L([ib])(n?\d+)E")
 _USED = re.compile(r"Used (\d+) registers")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _SMEM = re.compile(r"(\d+) bytes smem")
 
 
 def _kernel_name(mangled: str) -> str:
-    """`_ZN5blend10bwd_kernelILi28ELb0EEEvPKf...` -> `bwd_kernel<28, false>`."""
-    m = _KERNEL.match(mangled)
+    """`_ZN5blend10bwd_kernelILi28ELb0EEEvPKf...` -> `bwd_kernel<28, false>`,
+    `_ZN4prep21preprocess_fwd_kernelILin1EEEv...` ->
+    `preprocess_fwd_kernel<-1>`, `_ZN4prep24preprocess_reduce_kernelEPKf...`
+    -> `preprocess_reduce_kernel`: a kernel in a namespace, its template
+    arguments if it has any."""
+    m = _NAMESPACED.match(mangled)
     if not m:
         return mangled
-    name = m.group(2)[:int(m.group(1))]
-    args = [v if kind == "i" else ("true" if v == "1" else "false")
-            for kind, v in _TEMPLATE_ARG.findall(m.group(3))]
+    pos = m.end() + int(m.group(1))
+    n = _LENGTH.match(mangled, pos)
+    if not n:
+        return mangled
+    name = mangled[n.end():n.end() + int(n.group())]
+    rest = mangled[n.end() + len(name):]
+    if not rest.startswith("I"):
+        return name
+    args = [v.replace("n", "-") if kind == "i" else ("true" if v == "1" else "false")
+            for kind, v in _TEMPLATE_ARG.findall(rest[:rest.index("EEv")])]
     return f"{name}<{', '.join(args)}>"
 
 
@@ -335,3 +410,64 @@ def launch_reduce(rows, stored, s_gid, emit_inst, emit_start, emit_count, d_tabl
             emit_start.data_ptr(), emit_count.data_ptr(), d_table.data_ptr(), channels,
             d_table.shape[0], rows.shape[0], rows.shape[1], _stream(rows))
     _raise_on(err, "blend_reduce launch")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def launch_preprocess_forward(inputs, outputs, *, sh_degree: int, sh_coeffs: int,
+                              width: int, height: int, tile: int, focal_x: float,
+                              focal_y: float, lim_x: float, lim_y: float,
+                              scale_modifier: float, lib: ctypes.CDLL | None = None):
+    """The forward preprocess kernel. `inputs`: means3d, scales, quats,
+    opacities, shs, cov3d, view, full_proj, campos, means2d_offset (None
+    where unused); `outputs`: xy, depth, conic, color (None at sh_degree
+    -1), valid, radius, rect_min, rect_max, tiles_touched, preallocated."""
+    lib = lib or library()
+    means3d = inputs[0]
+    with torch.cuda.device(means3d.device):
+        err = lib.preprocess_fwd(
+            *map(_ptr, inputs), *map(_ptr, outputs), means3d.shape[0], sh_degree, sh_coeffs,
+            width, height, tile, focal_x, focal_y, lim_x, lim_y, scale_modifier,
+            _stream(means3d))
+    _raise_on(err, "preprocess_fwd launch")
+
+
+def preprocess_blocks(gaussians: int) -> int:
+    """Rows of matrix partials the backward kernel writes: one per CTA of
+    256 Gaussians (csrc/preprocess_common.cuh: BLOCK)."""
+    return -(-gaussians // 256)
+
+
+def launch_preprocess_backward(inputs, cotangents, grads, partials, *, sh_degree: int,
+                               sh_coeffs: int, width: int, height: int, focal_x: float,
+                               focal_y: float, lim_x: float, lim_y: float,
+                               scale_modifier: float, lib: ctypes.CDLL | None = None):
+    """The backward preprocess kernel. `inputs`: means3d, scales, quats,
+    shs, cov3d, view, full_proj, campos; `cotangents`: xy, depth, conic,
+    color, each None (zero) or a tensor whose rows hold adjacent entries;
+    `grads`: means3d, scales, quats, shs, cov3d, all None unless the
+    per-Gaussian gradients are wanted; `partials` (preprocess_blocks(P),
+    32) or None unless the matrices' gradients are."""
+    lib = lib or library()
+    means3d = inputs[0]
+    strides = [0 if g is None else g.stride(0) for g in cotangents]
+    with torch.cuda.device(means3d.device):
+        err = lib.preprocess_bwd(
+            *map(_ptr, inputs), *map(_ptr, cotangents), *map(_ptr, grads), _ptr(partials),
+            means3d.shape[0], sh_degree, sh_coeffs, int(grads[0] is not None),
+            int(partials is not None), *strides, width, height, focal_x, focal_y, lim_x,
+            lim_y, scale_modifier, _stream(means3d))
+    _raise_on(err, "preprocess_bwd launch")
+
+
+def launch_preprocess_reduce(partials: torch.Tensor, out: torch.Tensor,
+                             lib: ctypes.CDLL | None = None):
+    """out (2, 4, 4) = dL/d(view), dL/d(full_proj): the backward's per-CTA
+    partials summed in a fixed order."""
+    lib = lib or library()
+    with torch.cuda.device(partials.device):
+        err = lib.preprocess_reduce(partials.data_ptr(), out.data_ptr(), partials.shape[0],
+                                    _stream(partials))
+    _raise_on(err, "preprocess_reduce launch")

@@ -48,55 +48,15 @@ of bg and opacity reach the kernels through final_t.
 
 from __future__ import annotations
 
-import threading
-from dataclasses import dataclass, field
-
 import torch
 
 from . import config as C
 from .binning import EmissionOrder, bin_gaussians_sorted
-from .kernels import MAX_CHANNELS, MIN_CHANNELS
+from .kernels import MAX_CHANNELS, MIN_CHANNELS, KernelStats
 from .oracle import BlendOutput
 from .preprocess import Preprocessed
 
 GEOM_COLS = 8
-
-
-@dataclass
-class KernelStats:
-    """Launch counters of one kernel and of its plain version, in total and
-    per channel count C; launches given their CTAs per tile K (the reduce's)
-    also per "C/K". The threaded SLAM mode renders from two host threads,
-    so every update holds the lock."""
-
-    launches: int = 0
-    plain_calls: int = 0
-    launches_by_channels: dict[int, int] = field(default_factory=dict)
-    plain_by_channels: dict[int, int] = field(default_factory=dict)
-    launches_by_channels_ctas: dict[str, int] = field(default_factory=dict)
-    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
-                                  compare=False)
-
-    def count(self, channels: int, *, plain: bool, ctas: int | None = None) -> None:
-        with self._lock:
-            by = self.plain_by_channels if plain else self.launches_by_channels
-            by[channels] = by.get(channels, 0) + 1
-            if plain:
-                self.plain_calls += 1
-            else:
-                self.launches += 1
-                if ctas is not None:
-                    key = f"{channels}/{ctas}"
-                    by_k = self.launches_by_channels_ctas
-                    by_k[key] = by_k.get(key, 0) + 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.launches = 0
-            self.plain_calls = 0
-            self.launches_by_channels.clear()
-            self.plain_by_channels.clear()
-            self.launches_by_channels_ctas.clear()
 
 
 FWD_STATS = KernelStats()

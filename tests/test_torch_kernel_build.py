@@ -27,7 +27,7 @@ from online_lang_splatting_tpu_torch.ops.raster import kernels
 
 CSRC = Path(kernels._CSRC)
 # The entry points' ABI as the launch wrappers call it: P a pointer (or the
-# stream), I an int, in order.
+# stream), I an int, F a float, in order.
 _ABI = {
     "blend_fwd": "P" * 9 + "I" * 6 + "P",
     "blend_bwd": "P" * 11 + "I" * 4 + "P",
@@ -35,8 +35,11 @@ _ABI = {
     "blend_fwd_occupancy": "IP",
     "blend_bwd_occupancy": "IP",
     "blend_reduce_occupancy": "IIP",
+    "preprocess_fwd": "P" * 19 + "I" * 6 + "F" * 5 + "P",
+    "preprocess_bwd": "P" * 18 + "I" * 11 + "F" * 5 + "P",
+    "preprocess_reduce": "PPIP",
 }
-_CTYPE = {"P": ctypes.c_void_p, "I": ctypes.c_int}
+_CTYPE = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
 
 
 def test_every_source_is_hashed(tmp_path):
@@ -262,3 +265,39 @@ def test_ctas_per_tile_is_the_kernels_split():
     in blend_common.cuh splits a tile."""
     assert [kernels.ctas_per_tile(t) for t in (1, 8, 15, 16, 17, 24, 32, 48, 64)] == [
         1, 1, 1, 1, 4, 4, 4, 9, 16]
+
+
+def _prep_entry(mangled: str) -> str:
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Used 64 registers, used 1 barriers, 400 bytes cmem[0]\n")
+
+
+def test_ptxas_summary_names_the_preprocess_instances():
+    """The preprocess kernels' instances (namespace prep, a negative
+    template argument, a kernel without any), named as
+    kernels.preprocess_instance_names lists them."""
+    bools = {True: "1", False: "0"}
+    log = "".join(
+        [_prep_entry(f"_ZN4prep21preprocess_fwd_kernelIL{'in1' if d < 0 else f'i{d}'}EEEv"
+                     f"NS_4ArgsE") for d in kernels.PREPROCESS_DEGREES]
+        + [_prep_entry(f"_ZN4prep21preprocess_bwd_kernelIL{'in1' if d < 0 else f'i{d}'}ELb"
+                       f"{bools[g]}ELb{bools[m]}EEEvNS_4ArgsE")
+           for d in kernels.PREPROCESS_DEGREES for g, m in kernels.PREPROCESS_GRADS]
+        + [_prep_entry("_ZN4prep24preprocess_reduce_kernelEPKfiPf")])
+    names = [row["kernel"] for row in kernels.ptxas_summary(log)]
+    assert names == kernels.preprocess_instance_names()
+    assert names[0] == "preprocess_fwd_kernel<-1>"
+    assert "preprocess_bwd_kernel<0, false, true>" in names
+
+
+def test_preprocess_instances_match_the_source():
+    """The degrees and gradient sets the entry points dispatch to are
+    kernels.py's."""
+    fwd = (CSRC / "preprocess_fwd.cu").read_text()
+    bwd = (CSRC / "preprocess_bwd.cu").read_text()
+    for src, fn in ((fwd, "launch_fwd"), (bwd, "launch_bwd")):
+        cases = re.findall(rf"case (-?\d+): return \(int\){fn}<(-?\d+)>", src)
+        assert all(a == b for a, b in cases)
+        assert tuple(int(a) for a, _ in cases) == kernels.PREPROCESS_DEGREES
+    launched = re.findall(r"preprocess_bwd_kernel<DEG, (true|false), (true|false)><<<", bwd)
+    assert tuple((g == "true", m == "true") for g, m in launched) == kernels.PREPROCESS_GRADS
