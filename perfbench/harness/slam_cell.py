@@ -3,15 +3,18 @@ benchmark writes in the Replica-v2 layout and the port reads back, with
 the language supervision of the port's extractor on the benchmark's
 weights.
 
-Set-up writes the frames, draws the weights, builds the extractor and the
-SLAM as `slam_torch.main` builds them, and runs frame 0 (the map's
-initialisation) inside the one `SLAM.run` call. A wrapper around the
-instance's `_camera` opens the window when frame 1 is requested and, at
-the first request after the window's length, raises `StopWindow`, which
+Set-up writes the frames, draws the weights, builds the extractor, the
+language codec the configuration names (with `single_stage` false, the
+two-stage online autoencoder) and the SLAM as `slam_torch.main` builds
+them, and runs frame 0 (the map's initialisation) inside the one
+`SLAM.run` call. A wrapper around the instance's `_camera` opens the
+window when frame 1 is requested and, at the first request after the
+window's length that `window_closes` allows, raises `StopWindow`, which
 ends the call at a frame boundary (the run's own `finally` stops the
-prefetch threads). A second wrapper keeps the inputs and outputs of the
-window's last mapping iteration. After the window the check compares what
-the window produced with the benchmark's plain references."""
+prefetch threads). Other wrappers keep the inputs and outputs of the
+window's last mapping iteration and of its last online-codec steps. After
+the window the check compares what the window produced with the
+benchmark's plain references."""
 
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from perfbench.harness import counts, scene, weights
 from perfbench.harness.common import ROOT, StopWindow, rel_fro, rel_mean_abs
 from perfbench.reference import extractor as ref_extractor
 from perfbench.reference import mapping as ref_mapping
+from perfbench.reference import online_ae as ref_online_ae
 from perfbench.reference import raster as ref_raster
 
 WORK = ROOT / "build" / "perfbench"
@@ -60,6 +64,23 @@ class FrameClock:
                     self.on_close()
                 raise StopWindow
         return self._inner(idx)
+
+
+def window_closes(idx: int, elapsed: float, made: list, length: float,
+                  hold_until: float | None = None) -> bool:
+    """Whether the window closes at the request of frame idx, `elapsed`
+    seconds after it opened, having made the keyframes `made`. Past its
+    length it closes at the end of a keyframe's mapping (frame idx - 1 was a
+    keyframe), so that it holds whole keyframe cycles, or past 1.5 times
+    the length. A window that has made no keyframe by then closes at once;
+    with `hold_until` it runs on to the end of its first keyframe's mapping
+    instead, or to `hold_until` seconds, so that a traced window's mapping
+    metrics have a keyframe to read."""
+    if elapsed < length:
+        return False
+    if not made:
+        return hold_until is None or elapsed >= hold_until
+    return idx - 1 in made or elapsed >= 1.5 * length
 
 
 class BlendRecorder:
@@ -157,6 +178,54 @@ class MapRecorder:
         self.module.mapping_iteration = self._inner
 
 
+class OnlineAERecorder:
+    """Wraps the two-stage codec's `_step` and `train_and_encode` on the
+    trainer: while on, keeps the last step's rows, its leaves, Adam moments
+    and count before the step and its leaves after it (copied into one
+    flat tensor each time: the optimizer updates them in place), and the
+    last step that an extraction made (`last_extract`)."""
+
+    def __init__(self, trainer):
+        opt = trainer.optimizer
+        self.names = [n for n, _ in trainer.model.named_parameters()]
+        self.shapes = [p.shape for p in opt.params]
+        self.on = False
+        self.last = self.last_extract = None
+        step, encode = trainer._step, trainer.train_and_encode
+
+        def flat(tensors):
+            return torch.cat([t.detach().reshape(-1) for t in tensors])
+
+        def recorded_step(codes32):
+            if not self.on:
+                return step(codes32)
+            before, count = flat(opt.params + opt.mu + opt.nu), opt.count
+            out = step(codes32)
+            self.last = dict(x=codes32, before=before, after=flat(opt.params), count=count)
+            return out
+
+        def recorded_encode(codes32):
+            out = encode(codes32)  # its step goes through recorded_step
+            if self.on:
+                self.last_extract = self.last
+            return out
+
+        trainer._step, trainer.train_and_encode = recorded_step, recorded_encode
+
+    def leaves(self, vec) -> list:
+        """A flat copy cut back into dicts of leaves by name: [params] from
+        `after`, [params, mu, nu] from `before`."""
+        out, pos = [], 0
+        while pos < vec.numel():
+            group = {}
+            for name, shape in zip(self.names, self.shapes):
+                n = math.prod(shape)
+                group[name] = vec[pos:pos + n].view(shape)
+                pos += n
+            out.append(group)
+        return out
+
+
 def _sync():
     torch.cuda.synchronize()
 
@@ -173,7 +242,12 @@ def build(cfg: dict, traffic: dict, seed: int, device):
     slam_cfg["Dataset"]["dataset_path"] = str(frames)
     extractor = weights.extractor(cfg["extractor"], seed, device,
                                   use_hr=slam_cfg["language"]["hr_model"])
-    slam = SLAM(slam_cfg, lang_extractor=extractor, online_ae=None, device=device)
+    online_ae = None
+    if not slam_cfg["language"].get("single_stage", True):
+        from online_lang_splatting_tpu_torch.models.checkpoints import OnlineAETrainer
+
+        online_ae = OnlineAETrainer(device=device)  # as load_extractor_from_dir makes it
+    slam = SLAM(slam_cfg, lang_extractor=extractor, online_ae=online_ae, device=device)
     return slam, written
 
 
@@ -206,6 +280,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, t_start: float, devi
         spans.wrap(slam, "_camera", "data")
         recorder = BlendRecorder(tiled)
     mapping = MapRecorder(backend)
+    online = OnlineAERecorder(be.online_ae) if be.online_ae is not None else None
     snap: dict = {}
 
     def on_open():
@@ -216,6 +291,8 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, t_start: float, devi
         if on_card:
             torch.cuda.synchronize()
         mapping.on = True
+        if online is not None:
+            online.on = True
         if trace:
             recorder.on = True
             prof.start()
@@ -224,21 +301,19 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, t_start: float, devi
 
     def on_close():
         mapping.on = False
+        if online is not None:
+            online.on = False
         if trace:
             prof.stop(_sync)
             recorder.on = False
 
     if should_stop is None:
+        # A traced window holds a keyframe, up to an untraced window's cap.
+        hold_until = 1.5 * seconds if trace else None
+
         def should_stop(idx):
-            """Past the window's length, at the end of a keyframe's mapping
-            (frame idx - 1 was a keyframe), so that the window holds whole
-            keyframe cycles; at any frame boundary where the window has
-            made no keyframe, or past 1.5 times the length."""
-            elapsed = time.time() - clock.t_open
-            if elapsed < length:
-                return False
             made = [k for k in fe.kf_indices if k >= clock.first]
-            return not made or idx - 1 in made or elapsed >= 1.5 * length
+            return window_closes(idx, time.time() - clock.t_open, made, length, hold_until)
 
     clock = FrameClock(slam, should_stop, on_open, on_close)
     try:
@@ -269,10 +344,10 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, t_start: float, devi
                e2e={"slam_fps": frames_done / window_s, "setup_s": clock.t_open - t_start},
                peak=torch.cuda.max_memory_allocated() if on_card else 0)
     # What the window produced, taken before the program's state is freed.
-    numbers_in = _program_outputs(slam, clock.first, last, window_kfs)
+    numbers_in = _program_outputs(slam, clock.first, last, window_kfs, online)
     numbers_in["map_step"] = mapping.last
     numbers_in["window_keyframes"] = len(window_kfs)
-    del slam, fe, be, clock, mapping
+    del slam, fe, be, clock, mapping, online
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -293,12 +368,27 @@ def _map_bytes(be) -> int:
 
 
 @torch.no_grad()
-def _program_outputs(slam, first: int, last: int, window_kfs: list) -> dict:
+def _program_outputs(slam, first: int, last: int, window_kfs: list, online=None) -> dict:
+    """What the check compares, taken before the program's state is freed.
+    `codes` are the extractor's codes of the window's keyframes: the
+    supervision itself in one stage, the 32-d codes the online codec
+    compresses in two. `online`: the codec's last step, the last step an
+    extraction made and the supervision that extraction stored."""
     from online_lang_splatting_tpu_torch.slam.renderer import activate, render
 
     fe, be = slam.frontend, slam.backend
+    stack = be.frame_stack
     poses = {i: (fe.cameras[i].r.copy(), fe.cameras[i].t.copy()) for i in range(first, last + 1)}
-    codes = {k: be.frame_stack.langs[k] for k in window_kfs if k in be.frame_stack.langs}
+    kept = stack.cocos if online is not None else stack.langs
+    codes = {k: kept[k] for k in window_kfs if k in kept}
+    codec = None
+    if online is not None:
+        ext = online.last_extract
+        sup = None
+        if ext is not None:  # the keyframe whose 32-d codes that step took
+            sup = next((stack.langs.get(k) for k, v in stack.cocos.items() if v is ext["x"]),
+                       None)
+        codec = dict(recorder=online, step=online.last, extract=ext, supervision=sup)
     p = be.params
     params = dict(xyz=p.xyz, features_dc=p.features_dc, opacity=p.opacity, scaling=p.scaling,
                   rotation=p.rotation, language=p.language, active=be.aux.active)
@@ -308,7 +398,7 @@ def _program_outputs(slam, first: int, last: int, window_kfs: list) -> dict:
     img = render(activate(be.params, be.aux.active), w2c, slam.proj, slam.settings)
     rendered = dict(color=img.color, language=img.language, depth=img.depth)
     return dict(poses=poses, codes=codes, params=params, w2c=w2c, rendered=rendered,
-                tile=slam.settings.tile)
+                tile=slam.settings.tile, online=codec)
 
 
 def check(cfg: dict, traffic: dict, seed: int, device, got: dict) -> tuple[dict, int, dict]:
@@ -316,11 +406,13 @@ def check(cfg: dict, traffic: dict, seed: int, device, got: dict) -> tuple[dict,
     window's tracked frames against the written trajectory; the render of the map
     the window left, at the last frame's tracked pose, against the plain
     render of the same map (mean absolute error over the mean magnitude,
-    worst of colour, language and depth); the window's keyframe
-    supervision against the plain extractor on the frames as written
-    (Frobenius error over the reference's norm, worst keyframe); and the
-    window's last mapping iteration against the plain one from the same
-    map, poses, frames and optimizer state (`_mapping_numbers`)."""
+    worst of colour, language and depth); the window's keyframe codes
+    against the plain extractor on the frames as written (Frobenius error
+    over the reference's norm, worst keyframe; in two stages the 32-d
+    codes); the window's last mapping iteration against the plain one from
+    the same map, poses, frames and optimizer state (`_mapping_numbers`);
+    and in two stages the online codec's last steps (`_online_numbers`),
+    None in one."""
     calib = cfg["slam"]["Dataset"]["Calibration"]
     traj = traffic["trajectory_frames"]
     failed = 0
@@ -354,7 +446,8 @@ def check(cfg: dict, traffic: dict, seed: int, device, got: dict) -> tuple[dict,
         for k, prog in got["codes"].items():
             rgb, _ = scene.frame_u8(scene.pose(k, traj), tex, calib, float(calib["depth_scale"]))
             frame = torch.as_tensor(rgb, device=device).float() * inv255.to(device) * 255.0
-            want = ref_extractor.encode_frame(frame, w, cfg["extractor"]).permute(2, 0, 1)
+            want = ref_extractor.encode_frame(frame, w, cfg["extractor"])
+            want = want.permute(2, 0, 1) if prog.dim() == 3 else want.reshape(prog.shape)
             code_err = max(code_err, rel_fro(prog, want))
         del w
     map_grad_err = map_step_err = None
@@ -364,8 +457,13 @@ def check(cfg: dict, traffic: dict, seed: int, device, got: dict) -> tuple[dict,
             got["map_step"], calib, got["tile"])
     elif got["window_keyframes"]:  # keyframes made and no mapping iteration ran
         map_grad_err = map_step_err = math.inf
+    online_step_err = online_code_err = None
+    if got["online"] is not None:
+        online_step_err, online_code_err, detail["online_leaves"] = _online_numbers(
+            got["online"], got["window_keyframes"])
     numbers = dict(pose_rot_err_rad=rot_err, render_rel_err=render_err, lang_code_err=code_err,
-                   map_grad_err=map_grad_err, map_step_err=map_step_err)
+                   map_grad_err=map_grad_err, map_step_err=map_step_err,
+                   online_ae_step_err=online_step_err, online_code_err=online_code_err)
     return numbers, failed, detail
 
 
@@ -429,3 +527,44 @@ def _mapping_numbers(rec: dict, calib: dict, tile: int) -> tuple[float, float, d
     detail = {k: [grad_gap[k], step_gap[k]] for k in use}
     return max(grad_gap.values()), max(step_gap.values()), detail
 
+
+def _online_numbers(got: dict, window_keyframes: int) -> tuple:
+    """The two-stage codec against the plain reference from the program's
+    own state before each compared step: `online_ae_step_err`, the
+    window's last step, over the leaves the worst gap between the norms of
+    the program's and the reference's change of the leaf, over the larger
+    of the reference leaf's change and the median leaf's (the L1 loss's
+    gradient is a sum of signs, as in `_mapping_numbers`; a leaf whose
+    reference gradient is under a thousandth of the median leaf's is not
+    compared); `online_code_err`, the supervision the window's last
+    extraction stored against the reference's step and then encoding of
+    that step's rows (Frobenius, relative). A window that made keyframes
+    and no step, or no stored supervision, reads inf; one with no keyframe
+    reads None."""
+    rec = got["recorder"]
+
+    def reference(step):
+        p, mu, nu = rec.leaves(step["before"])
+        x = step["x"].float()
+        g = ref_online_ae.grads(x, p)
+        return p, g, ref_online_ae.adam(p, g, mu, nu, step["count"]), x
+
+    step_err = code_err = math.inf if window_keyframes else None
+    detail = {}
+    if got["step"] is not None:
+        p, g, after, _ = reference(got["step"])
+        (prog,) = rec.leaves(got["step"]["after"])
+        norms = {k: _norm(g[k]) for k in ref_online_ae.LEAVES}
+        med = float(np.median(list(norms.values())))
+        use = [k for k in ref_online_ae.LEAVES if norms[k] > 0.0 and norms[k] >= 1e-3 * med]
+        step_ref = {k: _norm(after[k] - p[k]) for k in use}
+        smed = float(np.median(list(step_ref.values()))) if use else 0.0
+        detail = {k: _gap(_norm(prog[k].float() - p[k]), step_ref[k], max(step_ref[k], smed))
+                  for k in use}
+        step_err = max(detail.values()) if detail else math.inf
+    if got["extract"] is not None and got["supervision"] is not None:
+        _, _, after, x = reference(got["extract"])
+        sup = got["supervision"]
+        want = ref_online_ae.encode(x, after)
+        code_err = rel_fro(sup.permute(1, 2, 0).reshape(want.shape), want)
+    return step_err, code_err, detail

@@ -1,6 +1,8 @@
 """Cells cut to a size the CPU runs in seconds, for the tests: the
 smoke scene's 96 x 64 frames and short loops, a narrow extractor. The
-production limits and everything else of the cell stay."""
+production limits and everything else of the cell stay. `two_stage`
+gives the orbit the configuration's other language codec: an extractor
+whose autoencoder ends in 32 and the online 32 -> 15 codec."""
 
 import copy
 
@@ -27,4 +29,21 @@ def cell(workload: str, **traffic) -> dict:
     else:
         c["config"]["calibration"] = dict(smoke["Dataset"]["Calibration"])
     c["traffic"].update(traffic)
+    return c
+
+
+# The two numbers only two-stage runs compare have no cell and no limits
+# file yet; these are the limits PERF.md proposes for such a cell, from
+# the orbit's readings at published widths on the card.
+TWO_STAGE_LIMITS = {"online_ae_step_err": 2e-4, "online_code_err": 1e-5}
+
+
+def two_stage(clip: int = 64, **traffic) -> dict:
+    """The orbit with the two-stage codec, its extractor's input `clip`
+    pixels square; the codes come a quarter of that on a side."""
+    c = cell("slam_replicav2_lang15.orbit", **traffic)
+    c["config"]["slam"]["language"].update(single_stage=False, feat_hw=clip // 4)
+    c["config"]["extractor"].update(clip_resolution=[clip, clip], ae_encoder=[16, 8, 32],
+                                    ae_decoder=[8, 16, 32])
+    c["limits"].update(TWO_STAGE_LIMITS)
     return c

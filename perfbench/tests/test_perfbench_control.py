@@ -16,8 +16,12 @@ SEEDS = (2**31 + 21, 2**31 + 22, 2**31 + 23)
 
 
 def _run(workload, system, seed, control, **kw):
-    c = small.cell(workload, **kw.pop("traffic", {}))
-    c["config"]["extractor"].update(clip_resolution=[256, 256])
+    traffic = kw.pop("traffic", {})
+    if workload == "two_stage":
+        c = small.two_stage(clip=256, **traffic)
+    else:
+        c = small.cell(workload, **traffic)
+        c["config"]["extractor"].update(clip_resolution=[256, 256])
     if system is slam_cell:
         c["config"]["slam"]["Training"]["use_gt_pose"] = True
     out = system.run(c, seed, 1e9, False, time.time(), device="cuda", control=control, **kw)
@@ -43,4 +47,15 @@ def test_slam_control_fails(card):
     ok, sound = _run("slam_replicav2_lang15.orbit", slam_cell, SEEDS[0], None, **dict(kw))
     assert ok, sound
     ok, tf32 = _run("slam_replicav2_lang15.orbit", slam_cell, SEEDS[0], "tf32", **dict(kw))
+    assert not ok, tf32
+
+
+@pytest.mark.card
+def test_two_stage_slam_control_fails(card):
+    """The orbit with the two-stage codec; its online numbers are read."""
+    kw = dict(should_stop=lambda idx: idx > 6, traffic={"frames": 9, "trajectory_frames": 30})
+    ok, sound = _run("two_stage", slam_cell, SEEDS[1], None, **dict(kw))
+    assert ok, sound
+    assert sound["online_ae_step_err"] is not None and sound["online_code_err"] is not None
+    ok, tf32 = _run("two_stage", slam_cell, SEEDS[1], "tf32", **dict(kw))
     assert not ok, tf32
